@@ -1,0 +1,26 @@
+"""llama3.2-1b — small llama3 dense decoder.  [hf:meta-llama/Llama-3.2-1B]
+
+16L d_model=2048 32H (GQA kv=8) d_ff=8192 vocab=128256.
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+
+@register("llama3.2-1b")
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="llama3.2-1b",
+        family="dense",
+        num_layers=16,
+        d_model=2048,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        d_ff=8192,
+        vocab_size=128_256,
+        rope_theta=500_000.0,
+        tie_embeddings=True,
+        param_dtype="float32",
+        remat_policy="dots",
+        grad_accum=4,
+        source="hf:meta-llama/Llama-3.2-1B; unverified",
+    )

@@ -1,0 +1,175 @@
+"""Paged-KV device functions: block pool + chunked prefill + batched decode.
+
+The device-side half of the paged cache (host bookkeeping lives in
+``repro_torch.serve.blocks``).  One KV *pool* holds every slot's cache:
+
+    pool["k"], pool["v"]: (num_layers, num_blocks, block_size, K, hd)
+
+A request's cache positions map through its block table — a row of
+``max_blocks_per_slot`` pool indices, padded with the scratch block — so
+view index ``v`` of the gathered per-slot cache
+
+    pool[layer][table_row].reshape(view_len, K, hd)
+
+is exactly logical position ``v``.  Two functions, both running the
+``repro_torch.models.transformer`` block body (same rmsnorm / attention /
+mlp):
+
+* :func:`prefill_chunk` — one prompt chunk of one request (batch 1, padded
+  to a pow2 ``bucket``), scatter-writes the chunk's K/V into the pool and
+  attends over the gathered view with an absolute-position causal mask;
+* :func:`decode_batch` — one token for ALL slots (static batch = slots);
+  inactive lanes are routed to the scratch block with length 0.
+
+Where this differs from the JAX package's ``repro.serve.paged``:
+
+* the pool is written IN PLACE (``index_put_``) and the same dict is
+  returned; the JAX version returns a new pool, which its engine rebinds;
+* the mask is expressed per row as ``q_offset`` / ``kv_len`` device tensors
+  handed to the flash-attention op (prefill: ``q_offset = start``, decode:
+  ``q_offset = lengths``; ``kv_len = view_len`` for both), which is exactly
+  the JAX causal mask ``kv_pos <= pos``.  No row of either mask is fully
+  masked, so the plain version's masking and the kernel's zeroing of a
+  fully masked row never differ here;
+* out-of-range block-table reads of padded prefill lanes are clamped, as
+  JAX clamps them, before those lanes are routed to the scratch block.
+
+The write-then-gather order is kept: the chunk's own K/V are in the view it
+attends over.  The gather stays in PyTorch (a kernel that reads through the
+block table is later work).  The pool always stores ``cfg.compute_dtype``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import head_weight, layer
+from repro_torch.serve.policy import ServeConfig
+
+SUPPORTED_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in SUPPORTED_FAMILIES or cfg.num_patches:
+        raise ValueError(
+            f"paged serving in the port supports text-only "
+            f"{SUPPORTED_FAMILIES} families, not {cfg.family!r}"
+            + (" with patches" if cfg.num_patches else "")
+        )
+
+
+def init_pool(cfg: ArchConfig, scfg: ServeConfig, device) -> dict:
+    """Zero-initialized paged KV pool for every layer."""
+    shape = (
+        cfg.num_layers,
+        scfg.resolved_num_blocks(),
+        scfg.block_size,
+        cfg.num_kv_heads,
+        cfg.resolved_head_dim,
+    )
+    dt = L.dtype_of(cfg.compute_dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _paged_attention(attn_p, h, cfg, pool_k, pool_v, *, positions, write_bi,
+                     write_off, tables, q_offset, kv_len):
+    """Project, scatter-write into the pool layer (in place), attend over the
+    gathered views.
+
+    h: (B, S, d); write_bi/write_off: (B*S,) flat pool coordinates for each
+    new token's K/V; tables: (B, max_blocks) pool block ids; q_offset,
+    kv_len: (B,) int32.  Returns the attention output (B, S, d).
+    """
+    cdt = L.dtype_of(cfg.compute_dtype)
+    b, s, _ = h.shape
+    q, k, v = L._project_qkv(attn_p, h, cfg, positions)
+    khd = k.shape[-2:]
+    pool_k.index_put_((write_bi, write_off),
+                      k.reshape((b * s,) + khd).to(pool_k.dtype))
+    pool_v.index_put_((write_bi, write_off),
+                      v.reshape((b * s,) + khd).to(pool_v.dtype))
+    view = tables.shape[1] * pool_k.shape[1]
+    k_view = pool_k[tables].reshape((b, view) + khd)
+    v_view = pool_v[tables].reshape((b, view) + khd)
+    out = L._sdpa(q, k_view, v_view, cfg, q_offset=q_offset, kv_len=kv_len)
+    return torch.einsum("bqhk,hkd->bqd", out, attn_p["wo"].to(cdt))
+
+
+def _stack_forward(params, pool, tokens, cfg, *, positions, write_bi,
+                   write_off, tables, q_offset, kv_len):
+    cdt = L.dtype_of(cfg.compute_dtype)
+    h = L.embed(params["embed"], tokens, cdt)
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
+        h = h + _paged_attention(
+            bp["attn"], n, cfg, pool["k"][i], pool["v"][i],
+            positions=positions, write_bi=write_bi, write_off=write_off,
+            tables=tables, q_offset=q_offset, kv_len=kv_len,
+        )
+        n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
+        h = h + L.mlp(bp["mlp"], n, cdt)
+    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
+
+
+def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
+                  scratch_block: int, cfg: ArchConfig, scfg: ServeConfig):
+    """One prompt chunk of one request through the whole stack.
+
+    tokens: (1, bucket) int, right-padded with zeros beyond ``width``; the
+    chunk covers prompt positions [start, start+width); table_row:
+    (max_blocks_per_slot,) int.  Returns (last-real-token logits (1, 1,
+    vocab), pool) — the pool is updated in place.
+    """
+    dev = tokens.device
+    bucket = tokens.shape[1]
+    bs = scfg.block_size
+    idx = torch.arange(bucket, dtype=torch.int64, device=dev)
+    pos = start + idx                        # absolute prompt positions
+    real = idx < width                       # padded lanes -> scratch
+    blk = table_row.to(torch.int64)[
+        (pos // bs).clamp(max=table_row.shape[0] - 1)
+    ]
+    write_bi = torch.where(real, blk, torch.full_like(blk, scratch_block))
+    write_off = torch.where(real, pos % bs, torch.zeros_like(pos))
+    rows = torch.full((1,), start, dtype=torch.int32, device=dev)
+    h = _stack_forward(
+        params, pool, tokens, cfg, positions=pos[None, :],
+        write_bi=write_bi, write_off=write_off,
+        tables=table_row.to(torch.int64)[None],
+        q_offset=rows, kv_len=torch.full_like(rows, scfg.view_len),
+    )
+    last = h[:, width - 1:width]
+    w, transpose = head_weight(params, cfg)
+    return L.logits_head(w, last, transpose=transpose), pool
+
+
+def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
+                 scfg: ServeConfig):
+    """One decode token for every slot lane (static batch = slots).
+
+    tokens: (S, 1) int; lengths: (S,) cache positions already written (the
+    new token lands at position ``lengths[s]``); tables: (S,
+    max_blocks_per_slot) int.  Inactive lanes must come in with length 0
+    and an all-scratch table row — they compute garbage that only ever
+    writes to the scratch block.  Returns (logits (S, 1, vocab), pool) — the
+    pool is updated in place.
+    """
+    s = tokens.shape[0]
+    bs = scfg.block_size
+    lengths64 = lengths.to(torch.int64)
+    tables64 = tables.to(torch.int64)
+    write_bi = tables64[torch.arange(s, device=tokens.device),
+                        lengths64 // bs]
+    write_off = lengths64 % bs
+    q_offset = lengths.to(torch.int32)
+    h = _stack_forward(
+        params, pool, tokens, cfg, positions=lengths64[:, None],
+        write_bi=write_bi, write_off=write_off, tables=tables64,
+        q_offset=q_offset,
+        kv_len=torch.full_like(q_offset, scfg.view_len),
+    )
+    w, transpose = head_weight(params, cfg)
+    return L.logits_head(w, h, transpose=transpose), pool
