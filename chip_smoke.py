@@ -6,11 +6,13 @@
 Phases, each printing one line of numbers:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build   — both CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with
-             nvcc for sm_90a, in parallel;
-3. kernels — each kernel against its plain PyTorch version on the card, in
-             bf16 (tolerance 2e-2 for RMSNorm, 4e-3 for attention) and fp32
-             (2e-5), TF32 off;
+2. build   — the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+             with nvcc for sm_90a, in parallel;
+3. kernels — each kernel against its plain PyTorch version on the card, at
+             the serve and the train paths' shapes, in bf16 (tolerance 2e-2
+             for RMSNorm, 4e-3 for attention, 5e-2 for the SSD scan) and
+             fp32 (2e-5; 2e-4 for the SSD scan, against its plain version
+             evaluated in fp64), TF32 off;
 4. serve   — llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads,
              vocab 128256; random weights from a seeded generator):
              ``calibrate_serve`` into a ProfileDB at the trace's mean decode
@@ -23,15 +25,36 @@ Phases, each printing one line of numbers:
              chunked prefill logits against the whole-prompt ``Model.prefill``;
              prints the simulated-vs-measured latency error (not gated);
 5. profile — one decode step at mid-run lengths: host wall time against the
-             card's busy time (torch.profiler), and the kernels that take
-             it; then the step's wall time at mid-run lengths against
-             length 0, in the order A B B A;
-6. a JSON line of every kernel at the serve shapes: launches on the serve
-   run (in all and per forward call), error against the plain version,
-   device times of the kernel, the
-   plain version and one PyTorch library call (``ms``, ``plain_ms``,
-   ``library_ms``), the kernel's time per call as the host launches it
-   (``call_ms``), and the bound from the card's data sheet.
+             card's busy time over the same profiled steps
+             (torch.profiler), and the kernels that take it; then the
+             step's wall time at mid-run lengths against length 0, in the
+             order A B B A;
+6. train   — mamba2-2.7b at its published widths and depth (64 layers,
+             d_model 2560, 80 SSD heads of 64, d_state 128; fp32 master
+             weights, bf16 compute, per-layer remat, AdamW; random weights
+             from a seeded generator) through ``launch.train.train``: seq
+             2048, batch 4, grad_accum 2, 3 steps; per step the loss, grad
+             norm, host and device ms and the launches of each kernel, which
+             must be 256 SSD scans and 258 RMSNorms; the peak memory; then
+             one more step under torch.profiler (busy and wall of that step);
+7. ssm     — ``Model.prefill`` of a 512-token prompt (two chunks) and 8
+             ``decode`` steps, each against the whole-sequence prefill at the
+             same position, in bf16 (limit 0.09 of the logits' scale) and
+             in fp32 compute (limit 1e-3); per compute type 576 SSD scans
+             and 1105 RMSNorms (9 prefills, 8 decode steps, 64 layers);
+8. simtrain — the paper's loop (``launch.sim_accuracy.run``) at full width:
+             the traced step, offline op profiles on the card, simulated
+             offline and refined against the measured step (not gated);
+             the traced graph's kernel nodes and the real step's launches
+             must both be 128 SSD scans and 129 RMSNorms a step;
+9. a JSON line of every kernel at the serve and train shapes: launches on
+   the serve or train run, error against the plain version, device times
+   of the kernel, the plain version and one PyTorch library call where one
+   computes the same function (``ms``, ``plain_ms``, ``library_ms``), the
+   kernel's time per call as the host launches it under inference mode
+   (``call_ms``, the median of five readings; for RMSNorm at the serve
+   shapes also without the ``torch.library`` op's dispatch,
+   ``call_ms_without_op``), and the bound from the card's data sheet.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
@@ -39,6 +62,7 @@ outside the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -52,6 +76,18 @@ FP32_TOL = 2e-5        # ... and for float32
 # bf16 attention: outputs over 1-2k keys are only ~0.03-0.05 here, so 2e-2
 # would pass a dropped tile; 4x the worst error measured on the H100 (1e-3)
 ATTN_BF16_TOL = 4e-3
+# SSD scan: the JAX kernel tests' tolerances (tests/test_kernels.py:101-102)
+SSD_BF16_TOL = 5e-2
+SSD_FP32_TOL = 2e-4
+# (batch, seq, heads, head_dim, d_state, chunk, B and C broadcast over heads):
+# a small case, and the train path's shape (mamba2-2.7b, one microbatch)
+SSD_CASES = {"small 1x512 H4 P64 N128 Q128": (1, 512, 4, 64, 128, 128, False),
+             "train 2x2048 H80 P64 N128 Q256 bcast": (2, 2048, 80, 64, 128, 256,
+                                                      True)}
+# RMSNorm rows x width: the serve path's (llama3.2-1b, d_model 2048: a
+# decode batch, prefill chunks) and the train path's (mamba2-2.7b, d_model
+# 2560: one microbatch of 2 x 2048 tokens)
+RMS_CASES = ((1, 2048), (8, 2048), (256, 2048), (1000, 2048), (4096, 2560))
 ARCH = "llama3.2-1b"
 SERVE = dict(slots=8, max_len=2048, block_size=16, chunk=256)
 TRACE = dict(n=16, rate=8.0, prompt_lens=(128, 256, 512, 1024),
@@ -63,6 +99,38 @@ FP32_FLOPS = 67e12
 CAL_REPEATS = 10       # samples per ProfileDB entry
 SPIN_CYCLES = 50_000_000   # ~25 ms at the H100's ~2 GHz boost clock
 CAL_PASSES = 2         # calibration passes; the twin prices from the last
+CALL_READINGS = 5      # host readings of a kernel's call time; the median
+TRAIN_ARCH = "mamba2-2.7b"
+# the config's grad_accum (2); seq and batch of the train cell at one card
+TRAIN = dict(seq=2048, batch=4, grad_accum=2, steps=3, seed=0)
+# prefill of 512 tokens (two 256-token chunks), then 8 decode steps, each
+# against the whole-sequence prefill at the same position; limits relative
+# to the logits' scale.  In bf16 the decode step (one token a product) and
+# the prefill (products over the sequence) round each of the 64 layers'
+# activations differently: the worst differences measured on the H100 were
+# 4.8 % and 6.1 % of the scale (two token draws), hence 0.09 (1.5x).  In
+# fp32 the two paths differ only in the order of fp32 sums, hence 1e-3: a
+# wrong carried state or conv tail would miss it by orders of magnitude.
+# The tokens come from their own seeded generator.
+SSM = dict(batch=2, prompt=512, decode=8, seed=1,
+           tol={"bfloat16": 0.09, "float32": 1e-3})
+# profiler ranges: the train step's phases and the kernel ops
+RANGES = ("train_step.", "repro_torch::")
+# kernel names -> kinds, for the train step's device-time breakdown (first
+# match wins)
+KERNEL_KINDS = (
+    ("ssd_scan kernel", ("ssd_scan_kernel",)),
+    ("rmsnorm kernel", ("rmsnorm",)),
+    ("gemm fp32", ("sgemm", "f32f32", "gemv")),
+    ("gemm bf16", ("nvjet", "gemm", "cutlass", "xmma")),
+    ("reduce", ("reduce",)),
+    ("copy / cast", ("copy", "cat", "fill", "index")),
+    ("elementwise", ("elementwise", "vectorized")),
+)
+# the simulator's loop at full width: one microbatch of the train cell
+# (its profile grids grow from the JAX benchmark's to the traced step's
+# sizes: launch.sim_accuracy.profile_grids)
+SIMTRAIN = dict(seq=2048, batch=2, steps=3, repeats=5)
 
 
 def phase(tag: str, **fields) -> None:
@@ -94,13 +162,67 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3,
     return start.elapsed_time(end) / iters
 
 
+def call_ms(fn) -> float:
+    """The median of ``CALL_READINGS`` host-paced readings of ``cuda_ms``
+    under inference mode, as the serve engine calls the kernels: a single
+    reading of a small kernel's call time swings with the host."""
+    def call():
+        with torch.inference_mode():
+            fn()
+
+    readings = sorted(cuda_ms(call, queued=False)
+                      for _ in range(CALL_READINGS))
+    return readings[len(readings) // 2]
+
+
+def device_kernels(prof) -> list:
+    """The kernels of a torch.profiler run (``key_averages``), without the
+    named ranges that the profiler also puts on the device timeline (the
+    step's ``train_step.*``, the ops' ``repro_torch::*``): a range's device
+    time is a span over kernels counted already."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(RANGES)]
+
+
+def device_ranges(prof) -> dict:
+    """Device milliseconds spanned by each named range (see
+    ``device_kernels``)."""
+    from torch.autograd import DeviceType
+
+    return {e.key: float(getattr(e, "device_time_total", 0.0) or 0.0) / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and e.key.startswith(RANGES)}
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.double() - b.double()).abs().max())
 
 
 def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     """allclose with rtol = atol = tol (the repo's kernel tolerance)."""
-    return bool(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol))
+    return bool(torch.allclose(a.double(), b.double(), rtol=tol, atol=tol))
+
+
+def ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype):
+    """SSD-scan inputs as the JAX kernel tests draw them: x, B, C normal,
+    dt uniform in [0.01, 1), A = -exp(normal); B and C broadcast over the
+    heads as a stride-0 view where ``bcast`` (the model's ngroups = 1)."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    x = rand(b, s, h, p)
+    if bcast:
+        B, C = (rand(b, s, 1, n).expand(b, s, h, n) for _ in range(2))
+    else:
+        B, C = rand(b, s, h, n), rand(b, s, h, n)
+    dt = 0.01 + 0.99 * torch.rand((b, s, h), generator=gen, device=dev)
+    A = -torch.exp(torch.randn(h, generator=gen, device=dev))
+    return x, B, C, dt, A
 
 
 # -- phase 3: kernels against their plain versions ------------------------------
@@ -111,6 +233,8 @@ def check_kernels(dev, gen, failures: list) -> None:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -120,10 +244,12 @@ def check_kernels(dev, gen, failures: list) -> None:
 
     results = []
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
-        for n in (1, 8, 256, 1000):
-            x, w = rand(n, 2048, dtype=dtype), rand(2048, dtype=torch.float32)
+        dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for n, d in RMS_CASES:
+            x, w = rand(n, d, dtype=dtype), rand(d, dtype=torch.float32)
             y, ref = fused_rmsnorm(x, w), rmsnorm_ref(x, w)
-            results.append((f"rmsnorm N={n} D=2048 {dtype}", y, ref, tol))
+            results.append((f"rmsnorm N={n} D={d} {dtype}", y, ref, tol,
+                            f"rmsnorm {dt_name}"))
         cases = [
             # the TPU kernel's semantics: causal Sq == Skv, non-causal Sq != Skv
             ("causal 2x256x256 H8/K2 D64", (2, 256, 256, 8, 2, 64), True,
@@ -146,19 +272,35 @@ def check_kernels(dev, gen, failures: list) -> None:
                       kv_len=None if kl is None else rows(kl))
             results.append((f"attention {label} {dtype}",
                             flash_attention(q, k, v, **kw),
-                            attention_ref(q, k, v, **kw), attn_tol))
+                            attention_ref(q, k, v, **kw), attn_tol,
+                            f"attention {dt_name}"))
+    # the SSD scan against its plain version evaluated in fp64 on the same
+    # values: at the train shape y sums 256 terms of order 5, so the plain
+    # version in fp32, in another order, is itself ~2e-4 off where y is small
+    for dtype, tol in ((torch.bfloat16, SSD_BF16_TOL),
+                       (torch.float32, SSD_FP32_TOL)):
+        dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for label, (b, s, h, p, n, chunk, bcast) in SSD_CASES.items():
+            ins = ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype)
+            y, st = ssd_scan(*ins, chunk=chunk, out_dtype=torch.float32)
+            yr, sr = ssd_scan_ref(*(t.double() for t in ins), chunk)
+            results.append((f"ssd_scan {label} y {dtype}", y, yr, tol,
+                            f"ssd_scan {dt_name}"))
+            results.append((f"ssd_scan {label} state {dtype}", st, sr, tol,
+                            f"ssd_scan {dt_name}"))
     torch.cuda.synchronize()
     worst = {}
-    for label, out, ref, tol in results:
+    for label, out, ref, tol, key in results:
         err = max_err(out, ref)
-        key = label.split()[0] + (" fp32" if tol == FP32_TOL else " bf16")
         worst[key] = max(worst.get(key, 0.0), err)
         if not close(out, ref, tol):
             failures.append(f"kernel check {label}: max abs err {err:.3g} "
                             f"over tolerance {tol}")
     phase("kernels", cases=len(results), max_abs_err=worst,
           tolerance={"rmsnorm bf16": BF16_TOL, "attention bf16": ATTN_BF16_TOL,
-                     "fp32": FP32_TOL}, tf32=False)
+                     "rmsnorm/attention fp32": FP32_TOL,
+                     "ssd_scan bf16": SSD_BF16_TOL,
+                     "ssd_scan fp32": SSD_FP32_TOL}, tf32=False)
 
 
 # -- phase 4: serve at full width -----------------------------------------------
@@ -398,8 +540,10 @@ def context_effect(dev, ctx: dict, steps: int = 20) -> None:
 
 def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
     """Host wall time of one full decode step against the card's busy time
-    (torch.profiler's kernel durations), at the mid-run lengths."""
-    from torch.autograd import DeviceType
+    (torch.profiler's kernel durations), at the mid-run lengths.  The idle
+    share is taken over the profiled steps themselves (busy and wall of the
+    same steps; the profiler slows the host); the wall time of as many
+    steps without the profiler is printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     s = ctx["scfg"].slots
@@ -410,11 +554,8 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
     wall = wall_ms(step, steps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+        wall_prof = wall_ms(step, steps)
+    kernels = device_kernels(prof)
 
     def dev_us(e):
         return float(getattr(e, "device_time_total", 0.0) or 0.0)
@@ -422,19 +563,19 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
     busy_ms = sum(dev_us(e) for e in kernels) / steps / 1e3
     if busy_ms <= 0.0:
         phase("profile", step="decode", lengths=lengths, wall_ms=wall,
-              device_busy_ms="not measured")
+              wall_ms_profiled=wall_prof, device_busy_ms="not measured")
         return
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     phase("profile", step="decode", slots=s, lengths=lengths,
-          wall_ms=wall, device_busy_ms=busy_ms,
-          idle_share=max(0.0, 1.0 - busy_ms / wall),
+          wall_ms=wall, wall_ms_profiled=wall_prof, device_busy_ms=busy_ms,
+          idle_share=1.0 - busy_ms / wall_prof,
           kernel_launches_per_step=sum(e.count for e in kernels) / steps,
           top_kernels=[{"kernel": e.key[:80],
                         "ms_per_step": dev_us(e) / steps / 1e3,
                         "launches_per_step": e.count / steps} for e in top])
 
 
-# -- phase 6: kernel times at the serve shapes ----------------------------------
+# -- phase 9: kernel times at the serve and train shapes ------------------------
 
 
 def kernel_table(dev, gen, ctx: dict) -> list:
@@ -444,6 +585,8 @@ def kernel_table(dev, gen, ctx: dict) -> list:
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, attention_ref,
     )
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -460,10 +603,6 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         """Launches per forward call, both counted on the serve run."""
         return ctx["launches"][name] / max(1, ctx["forward_calls"])
 
-    def bound(nbytes: float, ops: float, ops_rate: float):
-        t_b, t_o = nbytes / chip.hbm_bw, ops / ops_rate
-        return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
-
     out = []
     for phase_name, (b, sq, offs) in shapes.items():
         # RMSNorm: x (b, sq, d) bf16, fp32 weight, bf16 out (as in the model)
@@ -473,10 +612,14 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         n = b * sq
         err = max_err(fused_rmsnorm(x, w), rmsnorm_ref(x, w))
         ms = cuda_ms(lambda: fused_rmsnorm(x, w))
-        call_ms = cuda_ms(lambda: fused_rmsnorm(x, w), queued=False)
+        call = call_ms(lambda: fused_rmsnorm(x, w))
+        # the same launch without the torch.library op's dispatch: what the
+        # op costs the host-bound serve step per call
+        no_op = call_ms(lambda: rms_ops._impl(x, w, 1e-5, x.dtype))
         plain = cuda_ms(lambda: rmsnorm_ref(x, w))
         lib = cuda_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-5))
-        bms, by = bound(2 * n * d * 2 + d * 4, 4 * n * d, FP32_FLOPS)
+        ops_, nbytes = rms_cost(x, w, 1e-5, x.dtype)
+        bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
         out.append({
             "name": f"rmsnorm@{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -484,7 +627,8 @@ def kernel_table(dev, gen, ctx: dict) -> list:
             "launches": ctx["launches"]["rmsnorm"],
             "launches_per_forward": per_forward("rmsnorm"),
             "shape": f"x ({b}, {sq}, {d}) bf16, w fp32",
-            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "max_abs_err": err, "ms": ms, "call_ms": call,
+            "call_ms_without_op": no_op,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib, "library": "torch.nn.functional.rms_norm"})
 
@@ -497,8 +641,7 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         kw = dict(causal=True, q_offset=qo, kv_len=kl)
         err = max_err(flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw))
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
-        call_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw),
-                          queued=False)
+        call = call_ms(lambda: flash_attention(q, k, v, **kw))
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw))
         mask = attention_mask(b, sq, view, causal=True, q_offset=qo,
                               kv_len=kl, device=dev)[:, None]
@@ -510,7 +653,7 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         keys_read = sum(min(view, o + sq) for o in offs)
         nbytes = (2 * keys_read * kh * hd * 2            # K and V
                   + 2 * b * sq * h * hd * 2 + 2 * b * 4)  # q, out, masks
-        bms, by = bound(nbytes, 4 * h * hd * keys, chip.peak_flops)
+        bms, by = bound_ms(chip, nbytes, 4 * h * hd * keys, chip.peak_flops)
         out.append({
             "name": f"flash_attention@{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
@@ -520,11 +663,307 @@ def kernel_table(dev, gen, ctx: dict) -> list:
             "launches_per_forward": per_forward("flash_attention"),
             "shape": f"q ({b}, {sq}, {h}, {hd}) vs k/v ({b}, {view}, {kh}, "
                      f"{hd}) bf16, q_offset {offs}",
-            "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "max_abs_err": err, "ms": ms, "call_ms": call,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
             "library": "torch.nn.functional.scaled_dot_product_attention"})
     return out
+
+
+def bound_ms(chip, nbytes: float, ops: float, ops_rate: float):
+    """(milliseconds, "bytes" or "operations"): the larger of the two times
+    the card needs at its data-sheet rates."""
+    t_b, t_o = nbytes / chip.hbm_bw, ops / ops_rate
+    return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
+    """The kernels at the train path's shapes: the SSD scan and RMSNorm of
+    one microbatch of mamba2-2.7b; launches from the train run.  Each
+    output is held against its plain version with the kernel checks'
+    bf16 tolerance."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan.ops import cost as ssd_cost
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.models.mamba import mamba_dims
+
+    cfg, chip = ctx["cfg"], ctx["platform"].chip
+    m, _, nh = mamba_dims(cfg)
+    b, s = TRAIN["batch"] // TRAIN["grad_accum"], TRAIN["seq"]
+    out = []
+
+    ins = ssd_inputs(gen, dev, b, s, nh, m.head_dim, m.d_state, True,
+                     torch.bfloat16)
+    f32 = torch.float32
+
+    def kern():
+        return ssd_scan(*ins, chunk=m.chunk_size, out_dtype=f32)
+
+    y, st = kern()
+    # the error against the plain version evaluated in fp64 (see
+    # check_kernels); its time is the plain version's own, in fp32
+    yr, sr = ssd_scan_ref(*(t.double() for t in ins), m.chunk_size)
+    err = max(max_err(y, yr), max_err(st, sr))
+    if not (close(y, yr, SSD_BF16_TOL) and close(st, sr, SSD_BF16_TOL)):
+        failures.append(f"ssd_scan@train: max abs err {err:.3g} over "
+                        f"tolerance {SSD_BF16_TOL}")
+    del yr, sr
+    ops_, nbytes = ssd_cost(*ins, m.chunk_size, f32)
+    bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+    out.append({
+        "name": "ssd_scan@train", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:96",
+        "launches": ctx["launches"]["ssd_scan"],
+        "launches_per_step": ctx["launches"]["ssd_scan"] / TRAIN["steps"],
+        "shape": f"x ({b}, {s}, {nh}, {m.head_dim}) bf16, B/C ({b}, {s}, "
+                 f"{nh} by stride 0, {m.d_state}) bf16, dt fp32, chunk "
+                 f"{m.chunk_size}, y fp32",
+        "max_abs_err": err, "ms": cuda_ms(kern, iters=5),
+        "call_ms": call_ms(kern),
+        "plain_ms": cuda_ms(lambda: ssd_scan_ref(*ins, m.chunk_size),
+                            iters=5),
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "library": "none: no single PyTorch call computes the chunked scan "
+                   "(the plain version is a sequence of einsums and a loop "
+                   "over the chunks)"})
+
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = torch.randn(cfg.d_model, generator=gen, device=dev)
+    ops_, nbytes = rms_cost(x, w, cfg.norm_eps, x.dtype)
+    bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
+    w_lib = w.to(torch.bfloat16)
+    y, yr = fused_rmsnorm(x, w, eps=cfg.norm_eps), rmsnorm_ref(x, w,
+                                                                cfg.norm_eps)
+    err = max_err(y, yr)
+    if not close(y, yr, BF16_TOL):
+        failures.append(f"rmsnorm@train: max abs err {err:.3g} over "
+                        f"tolerance {BF16_TOL}")
+    out.append({
+        "name": "rmsnorm@train", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
+        "launches": ctx["launches"]["rmsnorm"],
+        "launches_per_step": ctx["launches"]["rmsnorm"] / TRAIN["steps"],
+        "shape": f"x ({b}, {s}, {cfg.d_model}) bf16, w fp32",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: fused_rmsnorm(x, w, eps=cfg.norm_eps)),
+        "call_ms": call_ms(lambda: fused_rmsnorm(x, w, eps=cfg.norm_eps)),
+        "plain_ms": cuda_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.rms_norm(x, (cfg.d_model,), w_lib,
+                                                 cfg.norm_eps)),
+        "library": "torch.nn.functional.rms_norm"})
+    return out
+
+
+# -- phase 6: train mamba2-2.7b at full width -----------------------------------
+
+
+def train_launches(cfg, grad_accum: int) -> dict:
+    """Kernel launches of one train step: per microbatch, every layer's SSD
+    scan and block norm in the forward pass, again in the backward pass
+    where the layer is recomputed (remat), and the final norm once.  The
+    gradients of both ops are the plain versions' VJPs and launch no
+    kernel."""
+    passes = 1 if cfg.remat_policy == "none" else 2
+    return {"ssd_scan": passes * cfg.num_layers * grad_accum,
+            "rmsnorm": (passes * cfg.num_layers + 1) * grad_accum}
+
+
+def train_phase(dev, failures: list) -> dict:
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.hardware import platform_for_device
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.train import train
+    from repro_torch.tree import leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    want = train_launches(cfg, TRAIN["grad_accum"])
+    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES}
+    steps = []
+    seen = {k: 0 for k in counters}
+
+    def on_step(i, rec):
+        rec = dict(rec, step=i + 1, launches={
+            k: c.count - seen[k] for k, c in counters.items()})
+        seen.update({k: c.count for k, c in counters.items()})
+        steps.append(rec)
+        phase("train-step", **rec)
+        for k, n in rec["launches"].items():
+            if n != want[k]:
+                failures.append(f"train step {i + 1}: {n} {k} launches, "
+                                f"expected {want[k]}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state, losses = train(cfg, steps=TRAIN["steps"], seq=TRAIN["seq"],
+                          batch=TRAIN["batch"],
+                          grad_accum=TRAIN["grad_accum"], seed=TRAIN["seed"],
+                          device=dev, on_step=on_step, log_fn=lambda _: None)
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"train: non-finite losses {losses}")
+    n_params = sum(p.numel() for p in leaves(state.params))
+    phase("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          params=n_params, **TRAIN, remat=cfg.remat_policy,
+          losses=losses, launches=launches, launches_per_step_expected=want,
+          max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+          seconds=wall)
+    return {"cfg": cfg, "state": state, "launches": launches,
+            "last_step_ms": steps[-1]["host_ms"],
+            "platform": platform_for_device(torch.cuda.get_device_name(dev))}
+
+
+def profile_train_step(dev, ctx: dict) -> None:
+    """One more step of the same run under torch.profiler: the card's busy
+    time against the host wall time of that step, and the kernels that take
+    it.  The wall time of the run's last step, without the profiler, is
+    printed beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import cosine_with_warmup, make_optimizer
+    from repro_torch.train.step import make_train_step
+
+    cfg = ctx["cfg"]
+    step = make_train_step(build_model(cfg), make_optimizer(cfg.optimizer),
+                           cosine_with_warmup(3e-4, 20, 21),
+                           grad_accum=TRAIN["grad_accum"])
+    shape = ShapeConfig("train", TRAIN["seq"], TRAIN["batch"], "train")
+    src = SyntheticTokens(cfg.vocab_size, shape.seq_len, shape.global_batch,
+                          seed=TRAIN["seed"])
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in src.batch_at(TRAIN["steps"]).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ctx["state"], metrics = step(ctx["state"], batch)
+        float(metrics["loss"])
+    wall = 1e3 * (time.perf_counter() - t0)
+    kernels = device_kernels(prof)
+
+    def dev_us(e):
+        return float(getattr(e, "device_time_total", 0.0) or 0.0)
+
+    busy = sum(dev_us(e) for e in kernels) / 1e3
+    if busy <= 0.0:
+        phase("train-profile", wall_ms=wall, device_busy_ms="not measured")
+        return
+    # device time by kind of kernel, and under the step's named ranges
+    kinds: dict = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, subs in KERNEL_KINDS if any(
+            x in name for x in subs)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + dev_us(e) / 1e3
+    ranges = device_ranges(prof)
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    phase("train-profile", wall_ms_profiled=wall, device_busy_ms=busy,
+          last_step_wall_ms=ctx["last_step_ms"], idle_share=1.0 - busy / wall,
+          device_ms_by_kind=kinds, device_ms_by_range=ranges,
+          kernel_launches=sum(e.count for e in kernels),
+          top_kernels=[{"kernel": e.key[:90], "ms": dev_us(e) / 1e3,
+                        "launches": e.count} for e in top])
+
+
+# -- phase 7: SSM prefill and decode against the whole sequence -----------------
+
+
+def ssm_phase(dev, ctx: dict, failures: list) -> None:
+    import dataclasses
+
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+
+    cfg, params = ctx["cfg"], ctx["state"].params
+    n_tok = SSM["prompt"] + SSM["decode"]
+    gen = torch.Generator(device=dev).manual_seed(SSM["seed"])
+    tokens = torch.randint(1, cfg.vocab_size, (SSM["batch"], n_tok),
+                           generator=gen, device=dev)
+    # per dtype: 1 + decode prefills, each one SSD scan a layer; every
+    # prefill and decode step a block norm a layer and the final norm
+    want = {"ssd_scan": (1 + SSM["decode"]) * cfg.num_layers,
+            "rmsnorm": (1 + 2 * SSM["decode"]) * (cfg.num_layers + 1)}
+    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES}
+    out = {}
+    for dtype, tol in SSM["tol"].items():
+        model = build_model(dataclasses.replace(cfg, compute_dtype=dtype))
+        errs, scales = [], []
+        # this path's run: counts from zero, read right after
+        for c in counters.values():
+            c.reset()
+        with torch.inference_mode():
+            logits, cache = model.prefill(params, tokens[:, :SSM["prompt"]])
+            for i in range(SSM["decode"]):
+                pos = SSM["prompt"] + i
+                logits, cache = model.decode(params, cache,
+                                             tokens[:, pos:pos + 1], pos)
+                whole, _ = model.prefill(params, tokens[:, :pos + 1])
+                if not (torch.isfinite(logits).all()
+                        and logits.shape == whole.shape):
+                    failures.append(f"ssm {dtype} decode step {i + 1}: "
+                                    f"logits {tuple(logits.shape)} not finite "
+                                    f"or not the shape of "
+                                    f"{tuple(whole.shape)}")
+                errs.append(max_err(logits, whole))
+                scales.append(float(whole.abs().max()))
+        torch.cuda.synchronize()
+        launches = {k: c.count for k, c in counters.items()}
+        if launches != want:
+            failures.append(f"ssm {dtype}: launches {launches}, expected "
+                            f"{want}")
+        for i, (e, sc) in enumerate(zip(errs, scales)):
+            if e > tol * max(1.0, sc):
+                failures.append(f"ssm {dtype} decode step {i + 1}: logits "
+                                f"differ from the whole-sequence prefill by "
+                                f"{e:.3g} (scale {sc:.3g}, limit {tol} x "
+                                f"scale)")
+        out[dtype] = {"max_abs_err": errs, "logit_scale": scales, "tol": tol,
+                      "launches": launches}
+    phase("ssm", arch=cfg.name, batch=SSM["batch"], prompt=SSM["prompt"],
+          decode=SSM["decode"], **out)
+
+
+# -- phase 8: the simulator's train-step loop at full width ---------------------
+
+
+def simtrain_phase(dev, ctx: dict, failures: list) -> dict:
+    from repro_torch.launch.sim_accuracy import run
+
+    cfg = ctx["cfg"]
+    row = run(cfg, seq=SIMTRAIN["seq"], batch=SIMTRAIN["batch"],
+              steps=SIMTRAIN["steps"], profile_repeats=SIMTRAIN["repeats"],
+              device=dev, log_fn=lambda _: None)
+    if not (row["measured_s"] > 0 and math.isfinite(row["sim_offline_s"])
+            and math.isfinite(row["sim_refined_s"])):
+        failures.append(f"simtrain: measured {row['measured_s']}, simulated "
+                        f"{row['sim_offline_s']} / {row['sim_refined_s']}")
+    # one step without grad_accum: each kernel op is one node of the traced
+    # graph and one launch of the real step, forward and remat recompute
+    want = train_launches(cfg, grad_accum=1)
+    if not (row["graph_kernel_nodes"] == want
+            and row["kernel_launches_per_step"] == want):
+        failures.append(f"simtrain: kernel nodes {row['graph_kernel_nodes']}"
+                        f", launches per step "
+                        f"{row['kernel_launches_per_step']}, expected {want}")
+    phase("simtrain", **row)
+    return row
 
 
 def main() -> int:
@@ -554,7 +993,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build_all(["rmsnorm", "flash_attention"])
+    _build.build_all(["rmsnorm", "flash_attention", "ssd_scan"])
     phase("build", seconds=time.perf_counter() - t0,
           flags=" ".join(_build.NVCC_FLAGS))
 
@@ -565,6 +1004,18 @@ def main() -> int:
     profile_decode(dev, ctx)
     context_effect(dev, ctx)
     table = kernel_table(dev, gen, ctx)
+    del ctx
+    torch.cuda.empty_cache()
+
+    tctx = train_phase(dev, failures)
+    profile_train_step(dev, tctx)
+    tctx["state"] = tctx["state"]._replace(opt_state=None)
+    ssm_phase(dev, tctx, failures)
+    table += train_kernel_table(dev, gen, tctx, failures)
+    cfg = tctx["cfg"]
+    del tctx
+    torch.cuda.empty_cache()
+    simtrain_phase(dev, {"cfg": cfg}, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

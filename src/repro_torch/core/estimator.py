@@ -3,10 +3,10 @@ analytic roofline fallback.
 
 The paper: "for each input argument we profile a fixed number of values, and
 use these results to train a neural network to estimate the op performance."
-In the JAX package the learned model is a small MLP regressing ``log(time)``
-on ``[log1p(flops), log1p(bytes)]`` per platform; its trainer is not ported
-yet (ROADMAP A5), so estimators here are built with ``use_learned=False``
-and the chain below skips stage 2.
+Here, as in the JAX package, the learned model is a small MLP (2x32, full-batch
+Adam) regressing ``log(time)`` on ``[log1p(flops), log1p(bytes)]`` per op
+family, trained on all profiled points of the platform; it is trained with
+torch on the CPU, from initial weights drawn with numpy.
 
 Fallback chain per compute node:
   1. exact DB hit for (op_family, args)            — paper's database query
@@ -20,6 +20,7 @@ with the winning stage stamped into ``node.meta["time_provenance"]``.
 from __future__ import annotations
 
 import math
+import zlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,11 +28,15 @@ import numpy as np
 
 from repro_torch.core.database import ProfileDB
 from repro_torch.core.graph import OpNode
-from repro_torch.core.hardware import PlatformSpec, collective_time
+from repro_torch.core.hardware import (
+    COLLECTIVE_KINDS,
+    PlatformSpec,
+    collective_time,
+)
 
 
 # ---------------------------------------------------------------------------
-# Learned regressor (its trainer waits for ROADMAP A5)
+# Learned regressor (tiny MLP, trained with torch on the CPU)
 # ---------------------------------------------------------------------------
 
 
@@ -54,20 +59,73 @@ class MLPModel:
         return float(np.exp(self.predict_log_time(f)[0]))
 
 
+def initial_weights(hidden: int = 32, seed: int = 0) -> dict:
+    """The MLP's starting point: normal(0, 0.5) weights from numpy, zero
+    biases (the JAX package draws the same law from its PRNG key)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "w1": rng.standard_normal((2, hidden)) * 0.5,
+        "b1": np.zeros((hidden,)),
+        "w2": rng.standard_normal((hidden, 1)) * 0.5,
+        "b2": np.zeros((1,)),
+    }
+
+
 def fit_time_model(
     points: list[tuple[float, float, float]],
     hidden: int = 32,
     steps: int = 800,
     seed: int = 0,
+    init: Optional[dict] = None,
 ) -> Optional[MLPModel]:
-    """The learned log-time regressor; not ported yet (ROADMAP A5).
+    """points: (flops, bytes, mean_s).  Trains the log-time MLP with
+    full-batch Adam (lr 3e-2, betas 0.9/0.999, eps 1e-8, ``steps`` steps),
+    in fp32, as the JAX package does.  ``init``: starting weights (keys
+    w1, b1, w2, b2), by default :func:`initial_weights` of ``seed``."""
+    if len(points) < 8:
+        return None
+    import torch
 
-    The JAX package trains it with JAX; its torch counterpart comes with the
-    offline op profiler, so the port's estimators run ``use_learned=False``.
-    """
-    raise NotImplementedError(
-        "fit_time_model is not ported to torch yet (ROADMAP A5); "
-        "build OpTimeEstimator(..., use_learned=False)"
+    arr = np.asarray(points, dtype=np.float64)
+    X = np.stack([np.log1p(arr[:, 0]), np.log1p(arr[:, 1])], axis=1)
+    y = np.log(np.maximum(arr[:, 2], 1e-9))
+    xm, xs = X.mean(0), X.std(0) + 1e-6
+    Xn = (X - xm) / xs
+
+    init = init if init is not None else initial_weights(hidden, seed)
+    f32 = dict(dtype=torch.float32, device="cpu")
+    params = {k: torch.tensor(np.asarray(init[k]), **f32)
+              for k in ("w1", "b1", "w2", "b2")}
+    Xt, yt = torch.tensor(Xn, **f32), torch.tensor(y, **f32)
+
+    def loss(p):
+        h = torch.tanh(Xt @ p["w1"] + p["b1"])
+        pred = (h @ p["w2"] + p["b2"])[:, 0]
+        return torch.mean((pred - yt) ** 2)
+
+    lr = 3e-2
+    m = {k: torch.zeros_like(v) for k, v in params.items()}
+    v = {k: torch.zeros_like(t) for k, t in params.items()}
+    keys = list(params)
+    for i in range(steps):
+        leaves = [params[k].requires_grad_() for k in keys]
+        grads = torch.autograd.grad(loss(params), leaves)
+        t = torch.tensor(i + 1, dtype=torch.int32)
+        with torch.no_grad():
+            for k, g in zip(keys, grads):
+                m[k] = 0.9 * m[k] + 0.1 * g
+                v[k] = 0.999 * v[k] + 0.001 * g * g
+                params[k] = params[k].detach() - lr * (
+                    m[k] / (1 - 0.9**t)
+                ) / (torch.sqrt(v[k] / (1 - 0.999**t)) + 1e-8)
+    out = {k: params[k].detach().numpy() for k in keys}
+    return MLPModel(
+        w1=out["w1"],
+        b1=out["b1"],
+        w2=out["w2"],
+        b2=out["b2"],
+        x_mean=xm,
+        x_std=xs,
     )
 
 
@@ -82,6 +140,16 @@ _FAMILY = {
     "reduce": "reduce",
     "gather": "gather",
     "dynamic-update-slice": "dynamic-update-slice",
+}
+
+# which DB op families feed which learned model — per-family regressors, the
+# paper trains one estimator per op
+_MODEL_SOURCES = {
+    "dot": ("dot",),
+    "reduce": ("reduce", "softmax"),
+    "__vector__": ("add", "mul", "relu", "exp", "tanh", "rsqrt", "copy"),
+    "gather": ("gather",),
+    "dynamic-update-slice": ("dynamic-update-slice",),
 }
 
 def dist_comm_bytes(node: OpNode) -> float:
@@ -163,9 +231,33 @@ class OpTimeEstimator:
                 db.meta(platform.name).get("op_overhead_s", 0.0)
             )
             if use_learned:
-                # the learned stage is not ported yet (ROADMAP A5): say so
-                # at construction instead of pricing without it
-                fit_time_model([])
+                for key, fams in _MODEL_SOURCES.items():
+                    # collective families never feed the compute MLP: their
+                    # cost is group-structured (entries differing only in
+                    # `devices` collide on the (flops, bytes) features), so
+                    # both the family list and any entry carrying a
+                    # `devices` arg are gated out — collectives are priced
+                    # by the CollectiveModel chain below instead
+                    pts = [
+                        (
+                            e.flops,
+                            e.bytes,
+                            max(e.mean_s - self.dispatch_s, 1e-8),
+                        )
+                        for fam in fams
+                        if fam not in COLLECTIVE_KINDS
+                        for e in db.entries(platform.name, fam)
+                        if e.mean_s > 0
+                        and (e.flops > 0 or e.bytes > 0)
+                        and "devices" not in e.args
+                    ]
+                    # stable digest, NOT hash(): Python string hashing is
+                    # salted per process
+                    m = fit_time_model(
+                        pts, seed=zlib.crc32(key.encode("utf-8")) % 2**31
+                    )
+                    if m is not None:
+                        self.models[key] = m
         self.stats = {"db": 0, "learned": 0, "analytic": 0, "newop": 0}
 
     # -- per-node ----------------------------------------------------------------

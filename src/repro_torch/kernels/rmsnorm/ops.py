@@ -3,8 +3,12 @@
 The kernel (``csrc/rmsnorm.cu``) replaces the TPU kernel
 ``repro/kernels/rmsnorm/kernel.py:fused_rmsnorm_2d``.  A tensor on the CPU
 goes through :func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`; a CUDA
-tensor launches the kernel or raises.  Serving takes no gradient, so there
-is no autograd wrapper yet.
+tensor launches the kernel or raises.
+
+The op is registered with ``torch.library`` as ``repro_torch::rmsnorm``: its
+fake implementation gives the shape alone (one traced node per launch), and
+its gradient is the VJP of the plain version, recomputed in the backward
+pass, as the JAX op's ``custom_vjp`` does (``repro/kernels/rmsnorm/ops.py``).
 """
 from __future__ import annotations
 
@@ -62,13 +66,62 @@ def _kernel(x: torch.Tensor, w: torch.Tensor, eps: float,
     return y.view(x.shape)
 
 
-def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
-                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2) + eps) * w over the last axis; fp32
-    statistics, output in ``out_dtype`` (default ``x.dtype``)."""
-    out_dtype = out_dtype or x.dtype
+def cost(x, w, eps: float, out_dtype) -> tuple[float, float]:
+    """(operations, bytes) of one call: four operations an element (square,
+    sum, the two scalings); x and w read once, y written once.  It is the
+    bound in ``chip_smoke.py`` and the cost of the op's node in a traced
+    graph."""
+    out_size = out_dtype.itemsize
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + x.numel() * out_size)
+    return 4.0 * x.numel(), float(nbytes)
+
+
+def _impl(x: torch.Tensor, w: torch.Tensor, eps: float,
+          out_dtype: torch.dtype) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     return _kernel(x, w, eps, out_dtype)
+
+
+_rmsnorm_op = torch.library.custom_op("repro_torch::rmsnorm",
+                                      mutates_args=())(_impl)
+
+
+@_rmsnorm_op.register_fake
+def _(x, w, eps, out_dtype):
+    return x.new_empty(x.shape, dtype=out_dtype)
+
+
+def _setup(ctx, inputs, output):
+    x, w, eps, _ = inputs
+    ctx.eps = eps
+    ctx.save_for_backward(x, w)
+
+
+def _backward(ctx, g):
+    ins = ctx.saved_tensors
+    with torch.enable_grad(), torch.profiler.record_function(
+            "repro_torch::rmsnorm.backward"):
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ins, ctx.needs_input_grad)]
+        y = rmsnorm_ref(*leaves, ctx.eps, torch.float32)
+        want = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, want, g.float()))
+    return (*(next(grads) if t.requires_grad else None for t in leaves),
+            None, None)
+
+
+_rmsnorm_op.register_autograd(_backward, setup_context=_setup)
+
+
+def fused_rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y = x * rsqrt(mean(x^2) + eps) * w over the last axis; fp32
+    statistics, output in ``out_dtype`` (default ``x.dtype``)."""
+    if x.device.type not in ("cpu", "cuda"):
+        # checked before dispatch: a meta tensor would reach the fake kernel
+        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
+    return _rmsnorm_op(x, w, float(eps), out_dtype or x.dtype)

@@ -1,1 +1,2 @@
-"""Command-line launchers of the port (serving so far)."""
+"""Command-line launchers of the port: serving, training and the
+train-step twin (``sim_accuracy``)."""

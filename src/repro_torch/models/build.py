@@ -1,9 +1,10 @@
-"""Model facade over the ported families (dense only, so far).
+"""Model facade over the ported families (dense and ssm, so far).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors::
 
     params = model.init(torch.Generator(device).manual_seed(0))
+    loss, metrics = model.loss(params, batch)               # ssm only, so far
     logits, cache = model.prefill(params, tokens)           # (B, S) tokens
     logits, cache = model.decode(params, cache, token, cache_len)
 
@@ -23,29 +24,32 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
+from repro_torch.tree import tree_map
 
 # JAX-package families still to port, and the ROADMAP.md item that ports them
 _WAITING = {
     "moe": "MoE + VLM",
     "vlm": "MoE + VLM",
-    "ssm": "ssd_scan with SSM/hybrid",
-    "hybrid": "ssd_scan with SSM/hybrid",
+    "hybrid": "the jamba superblock",
     "audio": "encdec",
 }
+_MODULES = {"dense": transformer, "ssm": hybrid}
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
     init: Callable  # generator -> params on generator.device
+    loss: Callable  # (params, batch) -> (loss, metrics)
     prefill: Callable  # (params, tokens, max_len=None) -> (logits, cache)
     decode: Callable  # (params, cache, token, cache_len) -> (logits, cache)
     init_cache: Callable  # (batch, max_len, dtype, device) -> cache
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    if cfg.family != "dense":
+    mod = _MODULES.get(cfg.family)
+    if mod is None:
         item = _WAITING.get(cfg.family, "?")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
@@ -53,32 +57,35 @@ def build_model(cfg: ArchConfig) -> Model:
         )
 
     def init(gen: torch.Generator):
-        return transformer.init_params(gen, cfg)
+        return mod.init_params(gen, cfg)
+
+    def loss(params, batch):
+        if mod is transformer:
+            raise NotImplementedError(
+                f"{cfg.name}: dense training waits for the flash-attention "
+                "gradient (ROADMAP.md, 'dense and MoE training')"
+            )
+        return mod.loss_fn(params, batch, cfg)
 
     def prefill(params, tokens, max_len=None):
-        return transformer.prefill(
+        return mod.prefill(
             params, tokens, cfg, tokens.shape[1] if max_len is None else max_len
         )
 
     def decode(params, cache, token, cache_len):
-        return transformer.decode_step(params, cache, token, cache_len, cfg)
+        return mod.decode_step(params, cache, token, cache_len, cfg)
 
     def init_cache(batch, max_len, dtype=torch.bfloat16, device="cuda"):
-        return transformer.init_cache(batch, max_len, cfg, dtype, device)
+        return mod.init_cache(batch, max_len, cfg, dtype, device)
 
-    return Model(cfg=cfg, init=init, prefill=prefill, decode=decode,
-                 init_cache=init_cache)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+    return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                 decode=decode, init_cache=init_cache)
 
 
 def load_jax_params(tree, device="cuda") -> dict:
     """The JAX package's parameter tree (numpy leaves) as tensors on
-    ``device``, keys, shapes and dtypes unchanged."""
+    ``device``, keys, shapes and dtypes unchanged (the mamba tree's fp32
+    ``A_log``, ``dt_bias`` and ``D_skip`` stay fp32 beside bf16 weights)."""
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":   # ml_dtypes bf16: go through fp32
@@ -86,11 +93,11 @@ def load_jax_params(tree, device="cuda") -> dict:
                 torch.bfloat16)
         return torch.tensor(a, device=device)   # a copy: jax's are read-only
 
-    return _tree_map(leaf, tree)
+    return tree_map(leaf, tree)
 
 
 def to_device(params, device) -> dict:
-    return _tree_map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
 
 
 def compute_params(params, cfg: ArchConfig) -> dict:
@@ -101,7 +108,7 @@ def compute_params(params, cfg: ArchConfig) -> dict:
     cdt = L.dtype_of(cfg.compute_dtype)
     blocks = dict(params["blocks"])
     for group in ("attn", "mlp"):
-        blocks[group] = _tree_map(lambda t: t.to(cdt), blocks[group])
+        blocks[group] = tree_map(lambda t: t.to(cdt), blocks[group])
     out = dict(params)
     out["blocks"] = blocks
     return out

@@ -1,5 +1,5 @@
 """Shared model substrate, dense subset: norms, RoPE, GQA attention with a
-bf16 KV cache, the SwiGLU MLP, embedding and head.
+bf16 KV cache, the SwiGLU MLP, embedding, head and cross-entropy.
 
 Parameters are plain dicts of tensors with the JAX package's keys and shapes
 (``repro.models.layers``), so a parameter tree crosses between the two
@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
@@ -232,3 +234,45 @@ def logits_head(emb_or_w, x, *, transpose: bool):
     if transpose:  # tied embeddings: w is (vocab, d)
         return torch.einsum("bsd,vd->bsv", xf, w)
     return torch.einsum("bsd,dv->bsv", xf, w)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Mean next-token cross-entropy, fp32. labels: integer (B,S)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return -ll.mean()
+    mask = mask.float()
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def chunked_xent(hidden, head_w, labels, *, transpose: bool, chunk: int,
+                 mask=None):
+    """Cross-entropy without materializing full (B,S,V) fp32 logits.
+
+    Loops over sequence chunks; each chunk computes logits -> logsumexp ->
+    label gather under ``torch.utils.checkpoint`` (the JAX package's
+    per-chunk ``jax.checkpoint``), so only (B, chunk, V) logits are live and
+    the backward pass recomputes them.  The sums run in the JAX scan's order.
+    """
+    b, s, d = hidden.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"seq {s} % loss chunk {chunk} != 0")
+
+    def body(h, lab, mk):
+        logits = logits_head(head_w, h, transpose=transpose)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return ((lse - tgt) * mk).sum()
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        mk = (torch.ones((b, chunk), dtype=torch.float32, device=hidden.device)
+              if mask is None else mask[:, sl].float())
+        nll_sum = nll_sum + checkpoint(body, hidden[:, sl], labels[:, sl], mk,
+                                       use_reentrant=False)
+        cnt = cnt + mk.sum()
+    return nll_sum / torch.clamp(cnt, min=1.0)

@@ -5,12 +5,14 @@ the families not ported yet.
 
 Block parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so parameter trees cross between the packages unchanged; the JAX
-``lax.scan`` over that axis is a Python loop over it here.  Training
-(``loss_fn``, ``run_stack``, remat) waits for the training slice.
+``lax.scan`` over that axis is a Python loop over it here.  Dense training
+(``loss_fn``, ``run_stack``) waits for the flash-attention gradient; the
+per-layer remat (:func:`_remat`) serves the SSM stack already.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -53,6 +55,37 @@ def layer(blocks: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked block parameters (views)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+def unbind_layers(blocks: dict) -> list[dict]:
+    """The stacked block parameters as one dict of views per layer.
+
+    ``unbind`` (not one index per layer) keeps the backward pass cheap: its
+    gradient is one ``stack`` of the per-layer gradients, where indexing
+    would add a zero-filled tensor of the whole stack per layer."""
+    per_leaf = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in blocks.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+def _remat(fn, cfg: ArchConfig):
+    """Per-layer rematerialization, the JAX package's ``_remat``.
+
+    ``"none"`` saves every activation.  ``"full"`` and ``"dots"`` run the
+    layer under ``torch.utils.checkpoint``: its activations are dropped after
+    the forward pass and recomputed in the backward.  JAX's ``"dots"`` policy
+    keeps the matmul outputs of the layer and recomputes the rest; the port
+    recomputes the whole layer (same numbers; more time, less memory), and
+    selective saving is a ROADMAP item.
+    """
+    if cfg.remat_policy == "none":
+        return fn
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return run
 
 
 def head_weight(params, cfg: ArchConfig):

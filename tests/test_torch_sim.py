@@ -173,8 +173,9 @@ def test_h100_sxm_data_sheet_figures():
 
 def test_unported_estimator_stages_raise():
     _, _, db, _ = _port_side()
-    with pytest.raises(NotImplementedError, match="A5"):
-        OpTimeEstimator(port_hw.CPU_HOST, db=db, use_learned=True)
+    # the learned stage is ported (tests/test_torch_simtrain.py): it builds
+    OpTimeEstimator(port_hw.CPU_HOST, db=db, use_learned=True)
+    # the distributed byte twins are not
     est = OpTimeEstimator(port_hw.CPU_HOST, db=None, use_learned=False)
     g = port_graph.DataflowGraph("g")
     node = g.add("ar", "all-reduce", comm_bytes=1e6, group_size=2,
