@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only kernels   # build, check and time the kernels
 
 Phases, each printing one line of numbers:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build   — the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
-             with nvcc for sm_90a, in parallel;
+             with nvcc for sm_90a, in parallel, and each kernel function's
+             registers, spills and static shared memory (``-Xptxas -v``);
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the serve and the train paths' shapes, in bf16 (tolerance 2e-2
-             for RMSNorm, 4e-3 for attention, 5e-2 for the SSD scan) and
-             fp32 (2e-5; 2e-4 for the SSD scan, against its plain version
-             evaluated in fp64), TF32 off;
+             the serve and the train paths' shapes and at the kernels'
+             edges (attention: decode rows ending around a split boundary,
+             kv_len short of the view with K/V past it set to 1e4, head dims
+             32 and 128, non-causal Sq != Skv, keys and rows mode; RMSNorm: a
+             width that is not a multiple of 8, and 8192), in bf16
+             (tolerance 2e-2 for RMSNorm, 4e-3 for attention, 5e-2 for the
+             SSD scan) and fp32 (2e-5; 2e-4 for the SSD scan, against its
+             plain version evaluated in fp64), TF32 off;
 4. serve   — llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads,
              vocab 128256; random weights from a seeded generator):
              ``calibrate_serve`` into a ProfileDB at the trace's mean decode
@@ -26,7 +32,8 @@ Phases, each printing one line of numbers:
              prints the simulated-vs-measured latency error (not gated);
 5. profile — one decode step at mid-run lengths: host wall time against the
              card's busy time over the same profiled steps
-             (torch.profiler), and the kernels that take it; then the
+             (torch.profiler), the kernels that take it and the port's own
+             kernels' share and launches; then the
              step's wall time at mid-run lengths against length 0, in the
              order A B B A;
 6. train   — mamba2-2.7b at its published widths and depth (64 layers,
@@ -50,20 +57,25 @@ Phases, each printing one line of numbers:
 9. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
-   computes the same function (``ms``, ``plain_ms``, ``library_ms``), the
+   computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
+   attention the whole op, split and combine kernels), the
    kernel's time per call as the host launches it under inference mode
    (``call_ms``, the median of five readings; for RMSNorm at the serve
    shapes also without the ``torch.library`` op's dispatch,
-   ``call_ms_without_op``), and the bound from the card's data sheet.
+   ``call_ms_without_op``), the bound from the card's data sheet (the
+   kernels' ``cost``) and the launch plan of attention.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -79,15 +91,21 @@ ATTN_BF16_TOL = 4e-3
 # SSD scan: the JAX kernel tests' tolerances (tests/test_kernels.py:101-102)
 SSD_BF16_TOL = 5e-2
 SSD_FP32_TOL = 2e-4
+# K and V past kv_len in the attention checks
+PAST_KV_LEN = 1e4
 # (batch, seq, heads, head_dim, d_state, chunk, B and C broadcast over heads):
 # a small case, and the train path's shape (mamba2-2.7b, one microbatch)
 SSD_CASES = {"small 1x512 H4 P64 N128 Q128": (1, 512, 4, 64, 128, 128, False),
              "train 2x2048 H80 P64 N128 Q256 bcast": (2, 2048, 80, 64, 128, 256,
                                                       True)}
-# RMSNorm rows x width: the serve path's (llama3.2-1b, d_model 2048: a
-# decode batch, prefill chunks) and the train path's (mamba2-2.7b, d_model
-# 2560: one microbatch of 2 x 2048 tokens)
-RMS_CASES = ((1, 2048), (8, 2048), (256, 2048), (1000, 2048), (4096, 2560))
+# RMSNorm rows x width, and the kernel's variant: the serve path's
+# (llama3.2-1b, d_model 2048: a decode batch, prefill chunks) and the train
+# path's (mamba2-2.7b, d_model 2560: one microbatch of 2 x 2048 tokens), a
+# warp a row; a width that is not a multiple of 8 (the scalar path) and the
+# widest d_model in configs/ (8192: eight warps share a row)
+RMS_CASES = ((1, 2048, "warp"), (8, 2048, "warp"), (256, 2048, "warp"),
+             (1000, 2048, "warp"), (4096, 2560, "warp"), (7, 2050, "scalar"),
+             (16, 8192, "block"))
 ARCH = "llama3.2-1b"
 SERVE = dict(slots=8, max_len=2048, block_size=16, chunk=256)
 TRACE = dict(n=16, rate=8.0, prompt_lens=(128, 256, 512, 1024),
@@ -127,6 +145,9 @@ KERNEL_KINDS = (
     ("copy / cast", ("copy", "cat", "fill", "index")),
     ("elementwise", ("elementwise", "vectorized")),
 )
+# the port's kernel functions, by name, in the decode step's profile
+PORT_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
+                "rmsnorm_vec_kernel", "rmsnorm_scalar_kernel")
 # the simulator's loop at full width: one microbatch of the train cell
 # (its profile grids grow from the JAX benchmark's to the traced step's
 # sizes: launch.sim_accuracy.profile_grids)
@@ -228,10 +249,63 @@ def ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype):
 # -- phase 3: kernels against their plain versions ------------------------------
 
 
+def attention_cases(dev) -> list:
+    """(label, (B, Sq, Skv, H, K, D), causal, q_offset, kv_len) of the
+    attention checks."""
+    from repro_torch.kernels.flash_attention.ops import (
+        BLOCK_N, launch_plan, sm_count,
+    )
+
+    # the serve decode shape's splits take 64-key tiles round-robin: rows
+    # whose visible keys end just before, on and after the tile where every
+    # split has work, and around the first tile edges
+    splits = launch_plan(8, 1, 2048, 32, 8, 64, sm_count(dev.index)).splits
+    edge = BLOCK_N * splits
+    seen = [edge - 1, edge, edge + 1, BLOCK_N - 1, BLOCK_N, BLOCK_N + 1, 1,
+            2048]
+    return [
+        # the TPU kernel's semantics: causal Sq == Skv, non-causal Sq != Skv
+        ("causal 2x256x256 H8/K2 D64", (2, 256, 256, 8, 2, 64), True,
+         None, None),
+        ("non-causal 2x200x333 H8/K2 D64", (2, 200, 333, 8, 2, 64), False,
+         None, None),
+        # the serve path: a prefill chunk and a decode batch, paged masks
+        ("prefill 1x256 vs view 2048 H32/K8 q_offset=768",
+         (1, 256, 2048, 32, 8, 64), True, [768], [2048]),
+        ("decode 8x1 vs view 2048 H32/K8 lengths",
+         (8, 1, 2048, 32, 8, 64), True,
+         [0, 127, 255, 511, 1023, 1100, 1500, 2047], [2048] * 8),
+        (f"decode 8x1 vs view 2048 H32/K8 at split edges ({splits} splits)",
+         (8, 1, 2048, 32, 8, 64), True, [n - 1 for n in seen], [2048] * 8),
+        # kv_len short of the view, K/V past it large
+        ("decode 4x1 vs 512 H32/K8 kv_len < view",
+         (4, 1, 512, 32, 8, 64), True, [100, 300, 511, 40],
+         [64, 200, 300, 41]),
+        ("prefill 2x64 vs 512 H32/K8 kv_len < view",
+         (2, 64, 512, 32, 8, 64), True, [100, 400], [130, 450]),
+        ("non-causal 2x40x300 H8/K2 kv_len < view",
+         (2, 40, 300, 8, 2, 64), False, None, [77, 300]),
+        # head dims 32 and 128, a few queries in keys mode, MHA in rows mode
+        ("prefill 2x100 vs 300 H8/K2 D32", (2, 100, 300, 8, 2, 32), True,
+         [200, 0], [300, 100]),
+        ("decode 4x1 vs 1024 H16/K4 D32", (4, 1, 1024, 16, 4, 32), True,
+         [5, 300, 700, 1023], [1024] * 4),
+        ("prefill 2x100 vs 300 H8/K2 D128", (2, 100, 300, 8, 2, 128), True,
+         [200, 0], [300, 100]),
+        ("decode 4x1 vs 1024 H16/K4 D128", (4, 1, 1024, 16, 4, 128), True,
+         [5, 300, 700, 1023], [1024] * 4),
+        ("3 queries 2x3 vs 700 H8/K2", (2, 3, 700, 8, 2, 64), True,
+         [600, 10], [700, 700]),
+        ("MHA causal 1x40x200 H4/K4", (1, 40, 200, 4, 4, 64), True, [160],
+         None),
+    ]
+
+
+
 def check_kernels(dev, gen, failures: list) -> None:
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, kernel_path
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -242,32 +316,30 @@ def check_kernels(dev, gen, failures: list) -> None:
     def rows(vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
-    results = []
+    results, rms_paths = [], {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for n, d in RMS_CASES:
+        for n, d, want in RMS_CASES:
             x, w = rand(n, d, dtype=dtype), rand(d, dtype=torch.float32)
+            label = f"rmsnorm N={n} D={d} {dt_name}"
+            rms_paths[label] = kernel_path(x, w)
+            if rms_paths[label] != want:
+                failures.append(f"kernel check {label}: the "
+                                f"{rms_paths[label]} variant, expected {want}")
             y, ref = fused_rmsnorm(x, w), rmsnorm_ref(x, w)
-            results.append((f"rmsnorm N={n} D={d} {dtype}", y, ref, tol,
-                            f"rmsnorm {dt_name}"))
-        cases = [
-            # the TPU kernel's semantics: causal Sq == Skv, non-causal Sq != Skv
-            ("causal 2x256x256 H8/K2 D64", (2, 256, 256, 8, 2, 64), True,
-             None, None),
-            ("non-causal 2x200x333 H8/K2 D64", (2, 200, 333, 8, 2, 64), False,
-             None, None),
-            # the serve path: a prefill chunk and a decode batch, paged masks
-            ("prefill 1x256 vs view 2048 H32/K8 q_offset=768",
-             (1, 256, 2048, 32, 8, 64), True, [768], [2048]),
-            ("decode 8x1 vs view 2048 H32/K8 lengths",
-             (8, 1, 2048, 32, 8, 64), True,
-             [0, 127, 255, 511, 1023, 1100, 1500, 2047], [2048] * 8),
-        ]
+            results.append((label, y, ref, tol, f"rmsnorm {dt_name}"))
         attn_tol = ATTN_BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-        for label, (b, sq, skv, h, kh, d), causal, qo, kl in cases:
+        for label, (b, sq, skv, h, kh, d), causal, qo, kl in attention_cases(
+                dev):
             q, k, v = (rand(b, sq, h, d, dtype=dtype),
                        rand(b, skv, kh, d, dtype=dtype),
                        rand(b, skv, kh, d, dtype=dtype))
+            if kl is not None:
+                # K/V past kv_len hold large finite values: a read past the
+                # edge shows in the output
+                for i, n in enumerate(kl):
+                    k[i, n:] = PAST_KV_LEN
+                    v[i, n:] = PAST_KV_LEN
             kw = dict(causal=causal, q_offset=None if qo is None else rows(qo),
                       kv_len=None if kl is None else rows(kl))
             results.append((f"attention {label} {dtype}",
@@ -297,6 +369,7 @@ def check_kernels(dev, gen, failures: list) -> None:
             failures.append(f"kernel check {label}: max abs err {err:.3g} "
                             f"over tolerance {tol}")
     phase("kernels", cases=len(results), max_abs_err=worst,
+          rmsnorm_paths=rms_paths,
           tolerance={"rmsnorm bf16": BF16_TOL, "attention bf16": ATTN_BF16_TOL,
                      "rmsnorm/attention fp32": FP32_TOL,
                      "ssd_scan bf16": SSD_BF16_TOL,
@@ -572,7 +645,13 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
           kernel_launches_per_step=sum(e.count for e in kernels) / steps,
           top_kernels=[{"kernel": e.key[:80],
                         "ms_per_step": dev_us(e) / steps / 1e3,
-                        "launches_per_step": e.count / steps} for e in top])
+                        "launches_per_step": e.count / steps} for e in top],
+          # the port's own kernels, wherever they rank
+          port_kernels=[{"kernel": e.key[:80],
+                         "ms_per_step": dev_us(e) / steps / 1e3,
+                         "launches_per_step": e.count / steps}
+                        for e in kernels if any(
+                            n in e.key for n in PORT_KERNELS)])
 
 
 # -- phase 9: kernel times at the serve and train shapes ------------------------
@@ -581,7 +660,10 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
 def kernel_table(dev, gen, ctx: dict) -> list:
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import cost as fa_cost
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, launch_plan, sm_count, smem_bytes,
+    )
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, attention_ref,
     )
@@ -599,8 +681,14 @@ def kernel_table(dev, gen, ctx: dict) -> list:
     shapes = {"decode": (scfg.slots, 1, lengths),
               "prefill": (1, scfg.chunk, [3 * scfg.chunk])}
 
-    def per_forward(name: str) -> float:
+    def launches(name: str):
+        """The serve run's launches; None where no path was driven."""
+        return None if ctx["launches"] is None else ctx["launches"][name]
+
+    def per_forward(name: str):
         """Launches per forward call, both counted on the serve run."""
+        if ctx["launches"] is None:
+            return None
         return ctx["launches"][name] / max(1, ctx["forward_calls"])
 
     out = []
@@ -624,7 +712,7 @@ def kernel_table(dev, gen, ctx: dict) -> list:
             "name": f"rmsnorm@{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
-            "launches": ctx["launches"]["rmsnorm"],
+            "launches": launches("rmsnorm"),
             "launches_per_forward": per_forward("rmsnorm"),
             "shape": f"x ({b}, {sq}, {d}) bf16, w fp32",
             "max_abs_err": err, "ms": ms, "call_ms": call,
@@ -649,24 +737,63 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True))
         # work this data needs: the keys each row sees, read once per KV head
-        keys = sum(min(view, o + i + 1) for o in offs for i in range(sq))
-        keys_read = sum(min(view, o + sq) for o in offs)
-        nbytes = (2 * keys_read * kh * hd * 2            # K and V
-                  + 2 * b * sq * h * hd * 2 + 2 * b * 4)  # q, out, masks
-        bms, by = bound_ms(chip, nbytes, 4 * h * hd * keys, chip.peak_flops)
+        ops_, nbytes = fa_cost(q, k, v, True, qo, kl)
+        bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+        plan = launch_plan(b, sq, view, h, kh, hd, sm_count(dev.index))
         out.append({
             "name": f"flash_attention@{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:127",
-            "launches": ctx["launches"]["flash_attention"],
+            "launches": launches("flash_attention"),
             "launches_per_forward": per_forward("flash_attention"),
             "shape": f"q ({b}, {sq}, {h}, {hd}) vs k/v ({b}, {view}, {kh}, "
                      f"{hd}) bf16, q_offset {offs}",
             "max_abs_err": err, "ms": ms, "call_ms": call,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
-            "library": "torch.nn.functional.scaled_dot_product_attention"})
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "plan": {"keys_mode": plan.split_keys,
+                     "row_tiles": plan.row_tiles, "splits": plan.splits,
+                     "grid": [plan.row_tiles, b * kh, plan.splits],
+                     "combine": plan.splits > 1,
+                     "smem_dynamic_bytes": smem_bytes(hd)}})
+    return out
+
+
+def ptxas_summary(logs: dict) -> dict:
+    """Per kernel package, each kernel function's registers, spills and
+    static shared memory, from nvcc's ``-Xptxas -v`` output (names
+    demangled where ``c++filt`` exists)."""
+    out = {}
+    for pkg, log in logs.items():
+        funcs, cur = [], None
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)'?", line)
+            if m:
+                if cur is None or cur["function"] != m.group(1):
+                    cur = {"function": m.group(1)}
+                    funcs.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur is not None:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem_static"] = int(sm.group(1)) if sm else 0
+        names = [f["function"] for f in funcs]
+        if names and shutil.which("c++filt"):
+            dem = subprocess.run(["c++filt"], input="\n".join(names),
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout.splitlines()
+            if len(dem) == len(names):
+                for f, n in zip(funcs, dem):
+                    f["function"] = n
+        out[pkg] = [f for f in funcs if "registers" in f]
     return out
 
 
@@ -693,6 +820,15 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     from repro_torch.models.mamba import mamba_dims
 
     cfg, chip = ctx["cfg"], ctx["platform"].chip
+    counts = ctx["launches"]
+
+    def launches(name: str):
+        """The train run's launches; None where no path was driven."""
+        return None if counts is None else counts[name]
+
+    def per_step(name: str):
+        return None if counts is None else counts[name] / TRAIN["steps"]
+
     m, _, nh = mamba_dims(cfg)
     b, s = TRAIN["batch"] // TRAIN["grad_accum"], TRAIN["seq"]
     out = []
@@ -719,8 +855,8 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "name": "ssd_scan@train", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:96",
-        "launches": ctx["launches"]["ssd_scan"],
-        "launches_per_step": ctx["launches"]["ssd_scan"] / TRAIN["steps"],
+        "launches": launches("ssd_scan"),
+        "launches_per_step": per_step("ssd_scan"),
         "shape": f"x ({b}, {s}, {nh}, {m.head_dim}) bf16, B/C ({b}, {s}, "
                  f"{nh} by stride 0, {m.d_state}) bf16, dt fp32, chunk "
                  f"{m.chunk_size}, y fp32",
@@ -749,8 +885,8 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "name": "rmsnorm@train", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
-        "launches": ctx["launches"]["rmsnorm"],
-        "launches_per_step": ctx["launches"]["rmsnorm"] / TRAIN["steps"],
+        "launches": launches("rmsnorm"),
+        "launches_per_step": per_step("rmsnorm"),
         "shape": f"x ({b}, {s}, {cfg.d_model}) bf16, w fp32",
         "max_abs_err": err,
         "ms": cuda_ms(lambda: fused_rmsnorm(x, w, eps=cfg.norm_eps)),
@@ -966,7 +1102,34 @@ def simtrain_phase(dev, ctx: dict, failures: list) -> dict:
     return row
 
 
+def kernels_only(dev, gen, failures: list) -> list:
+    """``--only kernels``: the kernel rows at the serve and train shapes
+    without driving the paths, so every launch field is null."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.hardware import platform_for_device
+    from repro_torch.serve.policy import ServeConfig
+    from repro_torch.serve.trace import poisson_trace
+
+    platform = platform_for_device(torch.cuda.get_device_name(dev))
+    trace = poisson_trace(TRACE["n"], TRACE["rate"],
+                          prompt_lens=TRACE["prompt_lens"],
+                          max_new_tokens=TRACE["max_new_tokens"],
+                          seed=TRACE["seed"])
+    table = kernel_table(dev, gen, {
+        "cfg": get_config(ARCH), "scfg": ServeConfig(**SERVE),
+        "platform": platform, "trace": trace, "launches": None,
+        "forward_calls": None})
+    return table + train_kernel_table(dev, gen, {
+        "cfg": get_config(TRAIN_ARCH), "platform": platform,
+        "launches": None}, failures)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=("kernels",),
+                    help="build, check and time the kernels alone (no "
+                         "serve or train run, no launch counts, no ok line)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
               "an NVIDIA card", file=sys.stderr)
@@ -993,13 +1156,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build_all(["rmsnorm", "flash_attention", "ssd_scan"])
+    logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan"])
     phase("build", seconds=time.perf_counter() - t0,
-          flags=" ".join(_build.NVCC_FLAGS))
+          flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas_summary(logs))
 
     failures: list[str] = []
     gen = torch.Generator(device=dev).manual_seed(0)
     check_kernels(dev, gen, failures)
+    if args.only == "kernels":
+        print(json.dumps({"kernels": kernels_only(dev, gen, failures)}),
+              flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
     ctx = serve(dev, failures)
     profile_decode(dev, ctx)
     context_effect(dev, ctx)

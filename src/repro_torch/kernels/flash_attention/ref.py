@@ -51,3 +51,46 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = s.masked_fill(~mask[:, None], NEG_INF)
     p = torch.softmax(s, dim=-1) * mask.any(dim=-1)[:, None, :, None]
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+
+
+def attention_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          keys: torch.Tensor, *, causal: bool = True,
+                          q_offset: Optional[torch.Tensor] = None,
+                          kv_len: Optional[torch.Tensor] = None,
+                          sm_scale: Optional[float] = None):
+    """The partial softmax of one KV split: attention over the keys where
+    ``keys`` ((Skv,) bool) is True, left unnormalised.  Returns fp32
+    (m, l, acc) of shapes (B, Sq, H), (B, Sq, H) and (B, Sq, H, D): the row
+    max of the visible scaled scores, the sum of exp(s - m), and the sum of
+    exp(s - m) v.  A row that sees no key of the split gets the neutral
+    partial m = NEG_INF, l = 0, acc = 0."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(h // kh, dim=2)
+    vf = v.float().repeat_interleave(h // kh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    mask = attention_mask(b, sq, skv, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len, device=q.device)
+    mask = (mask & keys.to(q.device)[None, None, :])[:, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * mask
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return (m.masked_fill(l == 0, NEG_INF).transpose(1, 2),
+            l.transpose(1, 2), acc)
+
+
+def combine_ref(m: torch.Tensor, l: torch.Tensor,
+                acc: torch.Tensor) -> torch.Tensor:
+    """The plain version of the combine kernel: merge S splits' partials
+    (m, l: (S, B, Sq, H); acc: (S, B, Sq, H, D)) by log-sum-exp.  Neutral
+    partials (l = 0) weigh nothing; a row with no visible key in any split
+    is zero.  Returns fp32 (B, Sq, H, D)."""
+    has = l > 0
+    top = torch.where(has, m, torch.full_like(m, -math.inf)).amax(dim=0)
+    w = torch.where(has, torch.exp(m - top), torch.zeros_like(m))
+    lsum = (w * l).sum(dim=0)
+    out = (w[..., None] * acc).sum(dim=0)
+    return out / lsum.clamp_min(1e-30)[..., None]

@@ -21,7 +21,6 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 LAUNCHES = _build.LaunchCounter("rmsnorm")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 48 * 1024            # the row is staged in shared memory
 
 
 def _lib():
@@ -50,9 +49,6 @@ def _kernel(x: torch.Tensor, w: torch.Tensor, eps: float,
     d = x.shape[-1]
     if w.shape != (d,):
         raise ValueError(f"rmsnorm kernel: w shape {tuple(w.shape)} != ({d},)")
-    if d * x.element_size() > _MAX_SMEM:
-        raise ValueError(f"rmsnorm kernel: row of {d} x {x.dtype} exceeds "
-                         f"{_MAX_SMEM} bytes of shared memory")
     fn = _lib()
     x2 = x.contiguous().view(-1, d)
     w = w.contiguous()
@@ -64,6 +60,20 @@ def _kernel(x: torch.Tensor, w: torch.Tensor, eps: float,
     _build.check(err, "rmsnorm_fwd")
     LAUNCHES.count += 1
     return y.view(x.shape)
+
+
+def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The variant of the kernel that x and w take on the card, by the
+    kernel's own rule (``rmsnorm_path`` in the source): "warp" (a warp a
+    row), "block" (a block a row) or "scalar"."""
+    import ctypes
+
+    fn = _build.load("rmsnorm").rmsnorm_path
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    aligned = all(t.contiguous().data_ptr() % 16 == 0 for t in (x, w))
+    code = fn(x.shape[-1], _DTYPES[x.dtype], int(aligned))
+    return ("scalar", "warp", "block")[code]
 
 
 def cost(x, w, eps: float, out_dtype) -> tuple[float, float]:

@@ -54,6 +54,88 @@ def test_kernels_match_plain_versions(dev, dtype, tol):
                                rtol=tol, atol=tol)
 
 
+# (B, Sq, Skv, H, K, D, causal, q_offset, kv_len): decode rows whose visible
+# keys end around a split boundary (filled in from the card's plan), kv_len
+# short of the view, head dims 32 and 128, non-causal Sq != Skv, keys mode
+# with several queries and rows mode with MHA
+ATTN_EDGE_CASES = {
+    "decode at split edges": (8, 1, 2048, 32, 8, 64, True, "split-edges",
+                              [2048] * 8),
+    "decode kv_len < view": (4, 1, 512, 32, 8, 64, True, [100, 300, 511, 40],
+                             [64, 200, 300, 41]),
+    "prefill kv_len < view": (2, 64, 512, 32, 8, 64, True, [100, 400],
+                              [130, 450]),
+    "non-causal kv_len < view": (2, 40, 300, 8, 2, 64, False, None,
+                                 [77, 300]),
+    "prefill D32": (2, 100, 300, 8, 2, 32, True, [200, 0], [300, 100]),
+    "decode D32": (4, 1, 1024, 16, 4, 32, True, [5, 300, 700, 1023], None),
+    "prefill D128": (2, 100, 300, 8, 2, 128, True, [200, 0], [300, 100]),
+    "decode D128": (4, 1, 1024, 16, 4, 128, True, [5, 300, 700, 1023], None),
+    "keys mode 3 queries": (2, 3, 700, 8, 2, 64, True, [600, 10], None),
+    "MHA rows mode": (1, 40, 200, 4, 4, 64, True, [160], None),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_EDGE_CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 4e-3)])
+def test_attention_kernel_at_split_and_mask_edges(dev, case, dtype, tol):
+    """K/V past kv_len hold 1e4, so a read past the edge shows.  bf16 holds
+    chip_smoke.py's attention tolerance (4e-3); one op call counts one
+    launch, split and combine kernels together."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, skv, h, kh, d, causal, qo, kl = ATTN_EDGE_CASES[case]
+    if qo == "split-edges":
+        edge = fa.BLOCK_N * fa.launch_plan(b, sq, skv, h, kh, d,
+                                           fa.sm_count(dev.index)).splits
+        qo = [n - 1 for n in (edge - 1, edge, edge + 1, 63, 64, 65, 1, skv)]
+    rng = np.random.default_rng(2)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=dev)
+
+    q, k, v = t(b, sq, h, d), t(b, skv, kh, d), t(b, skv, kh, d)
+    if kl is not None:
+        for i, n in enumerate(kl):
+            k[i, n:] = 1e4
+            v[i, n:] = 1e4
+    kw = dict(causal=causal,
+              q_offset=None if qo is None else torch.tensor(qo, device=dev),
+              kv_len=None if kl is None else torch.tensor(kl, device=dev))
+    n0 = fa.LAUNCHES.count
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == n0 + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n,d,misaligned,path", [
+    (7, 2050, False, "scalar"),   # not a multiple of 8
+    (16, 8192, False, "block"),   # the widest d_model in configs/
+    (5, 2560, True, "scalar"),    # a 16-byte misaligned x
+    (3, 12288, False, "block"),   # 48 KB of fp32
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_rmsnorm_kernel_at_widths(dev, n, d, misaligned, path, dtype, tol):
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(n * d + 1, generator=g, device=dev).to(dtype)
+    x = (x[1:] if misaligned else x[:-1]).view(n, d)
+    w = torch.randn(d, generator=g, device=dev)
+    assert rms.kernel_path(x, w) == path
+    for out_dtype in (dtype, torch.float32):
+        torch.testing.assert_close(
+            rms.fused_rmsnorm(x, w, out_dtype=out_dtype),
+            rmsnorm_ref(x, w, out_dtype=out_dtype), rtol=tol, atol=tol)
+
+
 def test_engine_on_card_matches_cpu(dev):
     from repro_torch.configs.base import get_config, smoke_variant
     from repro_torch.models import build_model
