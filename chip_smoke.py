@@ -15,10 +15,13 @@ Phases, each printing one line of numbers:
              edges (attention: decode rows ending around a split boundary,
              kv_len short of the view with K/V past it set to 1e4, head dims
              32 and 128, non-causal Sq != Skv, keys and rows mode; RMSNorm: a
-             width that is not a multiple of 8, and 8192), in bf16
-             (tolerance 2e-2 for RMSNorm, 4e-3 for attention, 5e-2 for the
-             SSD scan) and fp32 (2e-5; 2e-4 for the SSD scan, against its
-             plain version evaluated in fp64), TF32 off;
+             width that is not a multiple of 8, and 8192; the SSD scan:
+             chunks 64, 128 and 256, one chunk, B and C per head and
+             broadcast, dt = 0 on a padded tail), in bf16 (tolerance 2e-2
+             for RMSNorm, 4e-3 for attention, 5e-2 for the SSD scan) and
+             fp32 (2e-5; 2e-4 for the SSD scan, against its plain version
+             evaluated in fp64), TF32 off; and each of the SSD scan's three
+             bf16 kernels against its plain version at the train shape;
 4. serve   — llama3.2-1b at full width (16 layers, d_model 2048, 32/8 heads,
              vocab 128256; random weights from a seeded generator):
              ``calibrate_serve`` into a ProfileDB at the trace's mean decode
@@ -63,7 +66,10 @@ Phases, each printing one line of numbers:
    (``call_ms``, the median of five readings; for RMSNorm at the serve
    shapes also without the ``torch.library`` op's dispatch,
    ``call_ms_without_op``), the bound from the card's data sheet (the
-   kernels' ``cost``) and the launch plan of attention.
+   kernels' ``cost``), attention's launch plan, and for the SSD scan each
+   of its three kernels' time, share, grid, registers, shared memory and
+   the resident blocks an SM that the CUDA runtime reports for it (the
+   library's launch sizes held against ``launch_plan``'s).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
@@ -93,11 +99,22 @@ SSD_BF16_TOL = 5e-2
 SSD_FP32_TOL = 2e-4
 # K and V past kv_len in the attention checks
 PAST_KV_LEN = 1e4
-# (batch, seq, heads, head_dim, d_state, chunk, B and C broadcast over heads):
-# a small case, and the train path's shape (mamba2-2.7b, one microbatch)
-SSD_CASES = {"small 1x512 H4 P64 N128 Q128": (1, 512, 4, 64, 128, 128, False),
+# (batch, seq, heads, head_dim, d_state, chunk, B and C broadcast over heads,
+# trailing tokens with dt = 0): a small case, the train path's shape
+# (mamba2-2.7b, one microbatch), chunks of 64 and 128, a single chunk, B and
+# C per head at chunk 256, and the SSM prefill's padding (515 real tokens of
+# 768, dt = 0 past them)
+SSD_CASES = {"small 1x512 H4 P64 N128 Q128": (1, 512, 4, 64, 128, 128, False,
+                                              0),
              "train 2x2048 H80 P64 N128 Q256 bcast": (2, 2048, 80, 64, 128, 256,
-                                                      True)}
+                                                      True, 0),
+             "chunk 64 2x1024 H8 bcast": (2, 1024, 8, 64, 128, 64, True, 0),
+             "chunk 128 2x1024 H8 bcast": (2, 1024, 8, 64, 128, 128, True, 0),
+             "one chunk 1x256 H8 Q256 bcast": (1, 256, 8, 64, 128, 256, True,
+                                               0),
+             "per head 1x1024 H8 Q256": (1, 1024, 8, 64, 128, 256, False, 0),
+             "dt=0 tail 2x768 H8 Q256 bcast, 515 real": (2, 768, 8, 64, 128,
+                                                         256, True, 253)}
 # RMSNorm rows x width, and the kernel's variant: the serve path's
 # (llama3.2-1b, d_model 2048: a decode batch, prefill chunks) and the train
 # path's (mamba2-2.7b, d_model 2560: one microbatch of 2 x 2048 tokens), a
@@ -132,12 +149,16 @@ TRAIN = dict(seq=2048, batch=4, grad_accum=2, steps=3, seed=0)
 # The tokens come from their own seeded generator.
 SSM = dict(batch=2, prompt=512, decode=8, seed=1,
            tol={"bfloat16": 0.09, "float32": 1e-3})
+# the SSD scan's bf16 kernels, by the bit that runs each alone
+SSD_STAGES = {"ssd_chunk_state_kernel": 1, "ssd_state_pass_kernel": 2,
+              "ssd_chunk_out_kernel": 4}
 # profiler ranges: the train step's phases and the kernel ops
 RANGES = ("train_step.", "repro_torch::")
 # kernel names -> kinds, for the train step's device-time breakdown (first
 # match wins)
 KERNEL_KINDS = (
-    ("ssd_scan kernel", ("ssd_scan_kernel",)),
+    ("ssd_scan kernel", ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                         "ssd_chunk_out_kernel", "ssd_scan_f32_kernel")),
     ("rmsnorm kernel", ("rmsnorm",)),
     ("gemm fp32", ("sgemm", "f32f32", "gemv")),
     ("gemm bf16", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -229,10 +250,11 @@ def close(a: torch.Tensor, b: torch.Tensor, tol: float) -> bool:
     return bool(torch.allclose(a.double(), b.double(), rtol=tol, atol=tol))
 
 
-def ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype):
+def ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype, tail: int = 0):
     """SSD-scan inputs as the JAX kernel tests draw them: x, B, C normal,
     dt uniform in [0.01, 1), A = -exp(normal); B and C broadcast over the
-    heads as a stride-0 view where ``bcast`` (the model's ngroups = 1)."""
+    heads as a stride-0 view where ``bcast`` (the model's ngroups = 1); dt
+    = 0 on the last ``tail`` tokens (the SSM prefill's padding)."""
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
@@ -242,6 +264,8 @@ def ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype):
     else:
         B, C = rand(b, s, h, n), rand(b, s, h, n)
     dt = 0.01 + 0.99 * torch.rand((b, s, h), generator=gen, device=dev)
+    if tail:
+        dt[:, s - tail:] = 0.0
     A = -torch.exp(torch.randn(h, generator=gen, device=dev))
     return x, B, C, dt, A
 
@@ -352,14 +376,15 @@ def check_kernels(dev, gen, failures: list) -> None:
     for dtype, tol in ((torch.bfloat16, SSD_BF16_TOL),
                        (torch.float32, SSD_FP32_TOL)):
         dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for label, (b, s, h, p, n, chunk, bcast) in SSD_CASES.items():
-            ins = ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype)
+        for label, (b, s, h, p, n, chunk, bcast, tail) in SSD_CASES.items():
+            ins = ssd_inputs(gen, dev, b, s, h, p, n, bcast, dtype, tail)
             y, st = ssd_scan(*ins, chunk=chunk, out_dtype=torch.float32)
             yr, sr = ssd_scan_ref(*(t.double() for t in ins), chunk)
             results.append((f"ssd_scan {label} y {dtype}", y, yr, tol,
                             f"ssd_scan {dt_name}"))
             results.append((f"ssd_scan {label} state {dtype}", st, sr, tol,
                             f"ssd_scan {dt_name}"))
+    results += ssd_stage_checks(dev, gen)
     torch.cuda.synchronize()
     worst = {}
     for label, out, ref, tol, key in results:
@@ -373,7 +398,44 @@ def check_kernels(dev, gen, failures: list) -> None:
           tolerance={"rmsnorm bf16": BF16_TOL, "attention bf16": ATTN_BF16_TOL,
                      "rmsnorm/attention fp32": FP32_TOL,
                      "ssd_scan bf16": SSD_BF16_TOL,
-                     "ssd_scan fp32": SSD_FP32_TOL}, tf32=False)
+                     "ssd_scan fp32": SSD_FP32_TOL,
+                     "ssd_scan kernels 1 (states) and 3": SSD_BF16_TOL,
+                     "ssd_scan kernel 1 (cum, decay) and 2": SSD_FP32_TOL},
+          tf32=False)
+
+
+def ssd_stage_checks(dev, gen) -> list:
+    """Each of the SSD scan's three bf16 kernels against its plain version
+    evaluated in fp64, at the train shape, fed what the kernel before it
+    wrote (so each check sees one kernel alone): kernel 1's cumsum and
+    decays (fp64 and fp32 arithmetic: the fp32 tolerance) and chunk states
+    (bf16 products: the bf16 tolerance), kernel 2's entering and final
+    states (fp32 arithmetic), kernel 3's y (bf16 products)."""
+    from repro_torch.kernels.ssd_scan.ops import run_stages
+    from repro_torch.kernels.ssd_scan.ref import (
+        chunk_out_ref, chunk_state_ref, state_pass_ref,
+    )
+
+    b, s, h, p, n, chunk, bcast, tail = SSD_CASES[
+        "train 2x2048 H80 P64 N128 Q256 bcast"]
+    ins = ssd_inputs(gen, dev, b, s, h, p, n, bcast, torch.bfloat16, tail)
+    got = run_stages(*ins, chunk)
+    x, B, C, dt, A = (t.double() for t in ins)
+    cum, states, decay = chunk_state_ref(x, B, dt, A, chunk)
+    st_in, final = state_pass_ref(got["states"].double(),
+                                  got["decay"].double())
+    y = chunk_out_ref(x, B, C, dt, got["cum"].transpose(2, 3),
+                      got["st_in"].double(), chunk)
+    mma, f32 = ("ssd_scan kernels 1 (states) and 3",
+                "ssd_scan kernel 1 (cum, decay) and 2")
+    return [(f"ssd_scan kernel {k} train {name}", out, ref, tol, key)
+            for k, name, out, ref, tol, key in (
+                (1, "cum", got["cum"], cum.transpose(2, 3), SSD_FP32_TOL, f32),
+                (1, "decay", got["decay"], decay, SSD_FP32_TOL, f32),
+                (1, "states", got["states"], states, SSD_BF16_TOL, mma),
+                (2, "st_in", got["st_in"], st_in, SSD_FP32_TOL, f32),
+                (2, "final", got["final"], final, SSD_FP32_TOL, f32),
+                (3, "y", got["y"], y, SSD_BF16_TOL, mma))]
 
 
 # -- phase 4: serve at full width -----------------------------------------------
@@ -814,6 +876,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ops import cost as ssd_cost
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -830,7 +893,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         return None if counts is None else counts[name] / TRAIN["steps"]
 
     m, _, nh = mamba_dims(cfg)
-    b, s = TRAIN["batch"] // TRAIN["grad_accum"], TRAIN["seq"]
+    b, s, q = TRAIN["batch"] // TRAIN["grad_accum"], TRAIN["seq"], m.chunk_size
     out = []
 
     ins = ssd_inputs(gen, dev, b, s, nh, m.head_dim, m.d_state, True,
@@ -838,19 +901,53 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     f32 = torch.float32
 
     def kern():
-        return ssd_scan(*ins, chunk=m.chunk_size, out_dtype=f32)
+        return ssd_scan(*ins, chunk=q, out_dtype=f32)
 
     y, st = kern()
     # the error against the plain version evaluated in fp64 (see
     # check_kernels); its time is the plain version's own, in fp32
-    yr, sr = ssd_scan_ref(*(t.double() for t in ins), m.chunk_size)
+    yr, sr = ssd_scan_ref(*(t.double() for t in ins), q)
     err = max(max_err(y, yr), max_err(st, sr))
     if not (close(y, yr, SSD_BF16_TOL) and close(st, sr, SSD_BF16_TOL)):
         failures.append(f"ssd_scan@train: max abs err {err:.3g} over "
                         f"tolerance {SSD_BF16_TOL}")
     del yr, sr
-    ops_, nbytes = ssd_cost(*ins, m.chunk_size, f32)
+    ops_, nbytes = ssd_cost(*ins, q, f32)
     bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+    ms = cuda_ms(kern, iters=5)
+    # each kernel alone (no programmatic overlap with its neighbours), on
+    # the scratch of one full call
+    _, _, scratch = ssd_ops.launch_uncounted(*ins, q, f32, ssd_ops.ALL_STAGES)
+    stage_ms = {name: cuda_ms(lambda bit=bit: ssd_ops.launch_uncounted(
+                    *ins, q, f32, bit, scratch), iters=5)
+                for name, bit in SSD_STAGES.items()}
+    # what the built library launches, and the runtime's resident blocks an
+    # SM for each kernel; its sizes must be the plan's
+    plan = ssd_ops.launch_plan(b, s, nh, m.head_dim, m.d_state, q)
+    lib = ssd_ops.library_plan(b, s, nh, q, f32)
+    want = {"ssd_chunk_state_kernel": (plan.state_grid, plan.smem_state),
+            "ssd_state_pass_kernel": (plan.pass_grid, 0),
+            "ssd_chunk_out_kernel": (plan.out_grid, plan.smem_out)}
+    for name, (grid, smem) in want.items():
+        got = (lib[name]["grid"], lib[name]["smem_dynamic"])
+        if got != (grid, smem):
+            failures.append(f"ssd_scan@train {name}: the library launches "
+                            f"{got}, launch_plan says {(grid, smem)}")
+    build = {f["function"]: f for f in ctx.get("ptxas", {}).get("ssd_scan", [])}
+    kernels = {}
+    for name, t in stage_ms.items():
+        # the fp32-output instance of a kernel templated on it (demangled or
+        # not), as the train path runs it
+        reg = next((f for fn, f in build.items() if name in fn and (
+            name + "<" not in fn or "<float>" in fn)
+            and (name + "I" not in fn or name + "IfE" in fn)), {})
+        kernels[name] = {"ms": t, "share": t / sum(stage_ms.values()),
+                         "grid": list(lib[name]["grid"]),
+                         "registers": reg.get("registers"),
+                         "spill_stores": reg.get("spill_stores"),
+                         "smem_static": reg.get("smem_static"),
+                         "smem_dynamic": lib[name]["smem_dynamic"],
+                         "blocks_per_sm": lib[name]["blocks_per_sm"]}
     out.append({
         "name": "ssd_scan@train", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -859,15 +956,16 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "launches_per_step": per_step("ssd_scan"),
         "shape": f"x ({b}, {s}, {nh}, {m.head_dim}) bf16, B/C ({b}, {s}, "
                  f"{nh} by stride 0, {m.d_state}) bf16, dt fp32, chunk "
-                 f"{m.chunk_size}, y fp32",
-        "max_abs_err": err, "ms": cuda_ms(kern, iters=5),
-        "call_ms": call_ms(kern),
-        "plain_ms": cuda_ms(lambda: ssd_scan_ref(*ins, m.chunk_size),
-                            iters=5),
+                 f"{q}, y fp32",
+        "max_abs_err": err, "ms": ms, "call_ms": call_ms(kern),
+        "plain_ms": cuda_ms(lambda: ssd_scan_ref(*ins, q), iters=5),
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "library": "none: no single PyTorch call computes the chunked scan "
                    "(the plain version is a sequence of einsums and a loop "
-                   "over the chunks)"})
+                   "over the chunks)",
+        "kernels": kernels,
+        "scratch_bytes": sum(t.numel() * t.element_size() for t in scratch)})
+    del scratch
 
     x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(
         torch.bfloat16)
@@ -1102,7 +1200,7 @@ def simtrain_phase(dev, ctx: dict, failures: list) -> dict:
     return row
 
 
-def kernels_only(dev, gen, failures: list) -> list:
+def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
     from repro_torch.configs.base import get_config
@@ -1121,7 +1219,7 @@ def kernels_only(dev, gen, failures: list) -> list:
         "forward_calls": None})
     return table + train_kernel_table(dev, gen, {
         "cfg": get_config(TRAIN_ARCH), "platform": platform,
-        "launches": None}, failures)
+        "launches": None, "ptxas": ptxas}, failures)
 
 
 def main() -> int:
@@ -1157,15 +1255,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan"])
+    ptxas = ptxas_summary(logs)
     phase("build", seconds=time.perf_counter() - t0,
-          flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas_summary(logs))
+          flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
 
     failures: list[str] = []
     gen = torch.Generator(device=dev).manual_seed(0)
     check_kernels(dev, gen, failures)
     if args.only == "kernels":
-        print(json.dumps({"kernels": kernels_only(dev, gen, failures)}),
-              flush=True)
+        print(json.dumps({"kernels": kernels_only(dev, gen, failures,
+                                                  ptxas)}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
@@ -1180,6 +1279,7 @@ def main() -> int:
     profile_train_step(dev, tctx)
     tctx["state"] = tctx["state"]._replace(opt_state=None)
     ssm_phase(dev, tctx, failures)
+    tctx["ptxas"] = ptxas
     table += train_kernel_table(dev, gen, tctx, failures)
     cfg = tctx["cfg"]
     del tctx

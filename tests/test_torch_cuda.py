@@ -158,23 +158,8 @@ def test_engine_on_card_matches_cpu(dev):
     assert outs[0] == outs[1]
 
 
-# the JAX kernel tests' sweep (tests/test_kernels.py::test_ssd_scan_sweep)
-# plus the train path's shape with B and C broadcast over the heads
-@pytest.mark.parametrize("b,s,h,p,n,chunk,bcast", [
-    (1, 128, 2, 32, 32, 32, False),
-    (2, 256, 4, 32, 64, 64, False),
-    (1, 192, 1, 64, 128, 64, False),
-    (2, 64, 8, 16, 16, 16, False),
-    (2, 512, 8, 64, 128, 256, True),
-])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
-                                       (torch.bfloat16, 5e-2)])
-def test_ssd_kernel_matches_plain_version(dev, b, s, h, p, n, chunk, bcast,
-                                          dtype, tol):
-    from repro_torch.kernels.ssd_scan import ops as ssd
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
-
-    rng = np.random.default_rng(0)
+def _ssd_inputs(dev, dtype, b, s, h, p, n, bcast, tail=0, seed=0):
+    rng = np.random.default_rng(seed)
 
     def t(*shape, dtype=dtype):
         return torch.tensor(rng.standard_normal(shape), dtype=dtype,
@@ -187,8 +172,41 @@ def test_ssd_kernel_matches_plain_version(dev, b, s, h, p, n, chunk, bcast,
         B, C = t(b, s, h, n), t(b, s, h, n)
     dt = torch.tensor(rng.uniform(0.01, 1.0, (b, s, h)), dtype=torch.float32,
                       device=dev)
+    if tail:
+        dt[:, s - tail:] = 0.0
     A = torch.tensor(-np.exp(rng.standard_normal(h)), dtype=torch.float32,
                      device=dev)
+    return x, B, C, dt, A
+
+
+# the JAX kernel tests' sweep (tests/test_kernels.py::test_ssd_scan_sweep),
+# the train path's shape with B and C broadcast over the heads, and the bf16
+# kernels' edges: chunks of 64 and 128, a single chunk, B and C per head at
+# chunk 256, dt = 0 on a padded tail (the SSM prefill), a chunk that is not
+# a multiple of the 64-row tiles, and rows that cannot be copied 16 bytes at
+# a time (head_dim 36, d_state 44: element loads)
+@pytest.mark.parametrize("b,s,h,p,n,chunk,bcast,tail", [
+    (1, 128, 2, 32, 32, 32, False, 0),
+    (2, 256, 4, 32, 64, 64, False, 0),
+    (1, 192, 1, 64, 128, 64, False, 0),
+    (2, 64, 8, 16, 16, 16, False, 0),
+    (2, 512, 8, 64, 128, 256, True, 0),
+    (2, 1024, 8, 64, 128, 64, True, 0),
+    (2, 1024, 8, 64, 128, 128, True, 0),
+    (1, 256, 8, 64, 128, 256, True, 0),
+    (1, 1024, 8, 64, 128, 256, False, 0),
+    (2, 768, 8, 64, 128, 256, True, 253),
+    (1, 384, 2, 64, 128, 96, True, 0),
+    (1, 320, 3, 36, 44, 64, False, 0),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_ssd_kernel_matches_plain_version(dev, b, s, h, p, n, chunk, bcast,
+                                          tail, dtype, tol):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    x, B, C, dt, A = _ssd_inputs(dev, dtype, b, s, h, p, n, bcast, tail)
     n0 = ssd.LAUNCHES.count
     y, st = ssd.ssd_scan(x, B, C, dt, A, chunk=chunk,
                          out_dtype=torch.float32)
@@ -200,6 +218,98 @@ def test_ssd_kernel_matches_plain_version(dev, b, s, h, p, n, chunk, bcast,
     yr, str_ = ssd_scan_ref(*(t.double() for t in (x, B, C, dt, A)), chunk)
     torch.testing.assert_close(y.double(), yr, rtol=tol, atol=tol)
     torch.testing.assert_close(st.double(), str_, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,bcast", [
+    (2, 1024, 8, 64, 128, 256, True),
+    (1, 320, 3, 36, 44, 64, False),
+])
+def test_ssd_bf16_kernels_one_at_a_time_match_their_plain_versions(
+        dev, b, s, h, p, n, chunk, bcast):
+    """Kernel 1's cumsum and decays (fp32 tolerance) and chunk states (bf16
+    products: 5e-2), kernel 2 fed kernel 1's states (fp32), kernel 3 fed
+    the kernels' cum and entering states (5e-2); no launch is counted."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import (
+        chunk_out_ref, chunk_state_ref, state_pass_ref,
+    )
+
+    ins = _ssd_inputs(dev, torch.bfloat16, b, s, h, p, n, bcast, seed=4)
+    n0 = ssd.LAUNCHES.count
+    got = ssd.run_stages(*ins, chunk)
+    torch.cuda.synchronize()
+    assert ssd.LAUNCHES.count == n0
+    x, B, C, dt, A = (t.double() for t in ins)
+    cum, states, decay = chunk_state_ref(x, B, dt, A, chunk)
+    st_in, final = state_pass_ref(got["states"].double(),
+                                  got["decay"].double())
+    y = chunk_out_ref(x, B, C, dt, got["cum"].transpose(2, 3),
+                      got["st_in"].double(), chunk)
+    for out, ref, tol in ((got["cum"], cum.transpose(2, 3), 2e-4),
+                          (got["decay"], decay, 2e-4),
+                          (got["states"], states, 5e-2),
+                          (got["st_in"], st_in, 2e-4),
+                          (got["final"], final, 2e-4),
+                          (got["y"], y, 5e-2)):
+        torch.testing.assert_close(out.double(), ref, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,bcast", [
+    (2, 512, 4, 64, 128, 256, True),
+    (1, 256, 3, 64, 128, 64, False),
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_ssd_kernel_takes_a_negative_dt(dev, b, s, h, p, n, chunk, bcast,
+                                        dtype, tol):
+    """dt of either sign, as the plain version takes it: the bf16 chunk
+    outputs multiply the scores by dt (no log of dt), so y stays finite and
+    equal to the plain version's."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    x, B, C, dt, A = _ssd_inputs(dev, dtype, b, s, h, p, n, bcast, seed=7)
+    dt = dt - 0.3
+    assert float(dt.min()) < 0
+    y, st = ssd.ssd_scan(x, B, C, dt, A, chunk=chunk,
+                         out_dtype=torch.float32)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    yr, str_ = ssd_scan_ref(*(t.double() for t in (x, B, C, dt, A)), chunk)
+    torch.testing.assert_close(y.double(), yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(st.double(), str_, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (2, 2048, 80, 64, 128, 256),
+    (1, 384, 2, 64, 128, 96),
+    (1, 320, 3, 36, 44, 64),
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_ssd_library_launches_what_the_plan_says(dev, b, s, h, p, n, chunk,
+                                                 out_dtype):
+    """The built library's grids and shared memory are launch_plan's, and
+    the runtime keeps at least one block of each kernel on an SM."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    plan = ssd.launch_plan(b, s, h, p, n, chunk)
+    lib = ssd.library_plan(b, s, h, chunk, out_dtype)
+    want = {"ssd_chunk_state_kernel": (plan.state_grid, plan.smem_state),
+            "ssd_state_pass_kernel": (plan.pass_grid, 0),
+            "ssd_chunk_out_kernel": (plan.out_grid, plan.smem_out)}
+    for name, (grid, smem) in want.items():
+        assert (lib[name]["grid"], lib[name]["smem_dynamic"]) == (grid, smem)
+        assert lib[name]["blocks_per_sm"] >= 1, name
+
+
+def test_ssd_kernel_raises_on_what_it_does_not_take(dev):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    x, B, C, dt, A = _ssd_inputs(dev, torch.bfloat16, 1, 128, 2, 64, 128,
+                                 False)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd.ssd_scan(x, B, C, dt, A, chunk=100)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd.ssd_scan(torch.cat([x, x[..., :8]], -1), B, C, dt, A, chunk=64)
 
 
 def test_ssd_and_rmsnorm_gradients_on_card_match_cpu(dev):
