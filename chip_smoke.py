@@ -57,7 +57,32 @@ Phases, each printing one line of numbers:
              offline and refined against the measured step (not gated);
              the traced graph's kernel nodes and the real step's launches
              must both be 128 SSD scans and 129 RMSNorms a step;
-9. a JSON line of every kernel at the serve and train shapes: launches on
+9. dense-train — llama3.2-1b at its published widths and depth (16 layers,
+             d_model 2048, 32/8 heads of 64, d_ff 8192, vocab 128,256, tied
+             embedding; fp32 master weights, bf16 compute, per-layer remat,
+             AdamW, random seeded weights) through ``launch.train.train``:
+             seq 2048, batch 8, grad_accum 4 (the config's), 3 steps; per
+             step the loss, host and device ms, tokens/s, peak memory and
+             launches, which must be 128 flash attentions (forward and
+             recompute; the gradient is the plain version's VJP) and 260
+             RMSNorms; then one more step under torch.profiler (device time
+             by kind and under the named ranges, the attention VJP's
+             ``repro_torch::flash_attention.backward`` among them);
+10. dense-check — one microbatch of that run's model through the kernel
+             against the same microbatch with attention swapped for
+             ``attention_ref`` (inside this script only): loss and global
+             grad norm within the repo's bf16 tolerance;
+11. moe     — the JAX Table-2 benchmark's ``moe_qwen3`` variant
+             (``launch.sim_accuracy.smoke_config``: 4 layers, d_model 256,
+             4 experts top-2, fp32; seq 128, batch 8): 3 train steps with
+             finite losses, aux > 0 and 4 flash / 9 RMSNorm launches a step;
+             prefill of 64 tokens and 8 decode steps against the
+             whole-sequence prefill (fp32 limit 1e-3 of the logits' scale),
+             at a capacity no token overflows on either path;
+12. simtrain rows for ``dense_llama`` at full width on one microbatch (32
+             flash and 65 RMSNorm nodes and launches) and ``moe_qwen3`` at
+             the benchmark's variant (4 and 9);
+13. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -70,6 +95,11 @@ Phases, each printing one line of numbers:
    of its three kernels' time, share, grid, registers, shared memory and
    the resident blocks an SM that the CUDA runtime reports for it (the
    library's launch sizes held against ``launch_plan``'s).
+
+Phase 3 also holds flash attention at the train shapes (llama3.2-1b's
+microbatch in bf16, the moe_qwen3 variant's in fp32; causal, no masks)
+against its plain version, prints the bf16 launch plan, and runs
+``torch.library.opcheck`` on the op on the card.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
@@ -157,6 +187,8 @@ RANGES = ("train_step.", "repro_torch::")
 # kernel names -> kinds, for the train step's device-time breakdown (first
 # match wins)
 KERNEL_KINDS = (
+    ("flash_attention kernel", ("flash_mma_kernel", "flash_combine_kernel",
+                                "flash_f32_kernel")),
     ("ssd_scan kernel", ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                          "ssd_chunk_out_kernel", "ssd_scan_f32_kernel")),
     ("rmsnorm kernel", ("rmsnorm",)),
@@ -173,6 +205,25 @@ PORT_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
 # (its profile grids grow from the JAX benchmark's to the traced step's
 # sizes: launch.sim_accuracy.profile_grids)
 SIMTRAIN = dict(seq=2048, batch=2, steps=3, repeats=5)
+DENSE_ARCH = "llama3.2-1b"
+# the config's grad_accum (4): microbatches of 2 x 2048 tokens; nothing cut
+DENSE = dict(seq=2048, batch=8, grad_accum=4, steps=3, seed=0)
+# [dense-check]: the loss and the global grad norm of one microbatch through
+# the kernel against attention_ref, relative: the repo's bf16 tolerance
+DENSE_CHECK_TOL = BF16_TOL
+MOE_ARCH = "qwen3-moe-235b-a22b"
+# the JAX Table-2 benchmark's moe_qwen3 cell: its reduced variant
+# (launch.sim_accuracy.smoke_config), seq 128, batch 8
+MOE = dict(seq=128, batch=8, grad_accum=1, steps=3, seed=0)
+# MoE prefill of 64 tokens, then 8 decode steps, each against the
+# whole-sequence prefill; fp32 compute, so the SSM phase's fp32 limit
+MOE_DECODE = dict(batch=2, prompt=64, decode=8, seed=1, tol=1e-3)
+# flash attention at the train paths' shapes ((B, S, H, K, D), dtype,
+# tolerance; causal, no masks): one microbatch of llama3.2-1b, and the
+# moe_qwen3 variant's batch
+FLASH_TRAIN = {"dense-train": ((2, 2048, 32, 8, 64), torch.bfloat16,
+                               ATTN_BF16_TOL),
+               "moe_qwen3": ((8, 128, 8, 4, 32), torch.float32, FP32_TOL)}
 
 
 def phase(tag: str, **fields) -> None:
@@ -326,8 +377,27 @@ def attention_cases(dev) -> list:
 
 
 
+def flash_opcheck(dev, gen, failures: list) -> str:
+    """``torch.library.opcheck`` of the flash-attention op on one small bf16
+    case on the card (schema, fake implementation, autograd registration,
+    AOT dispatch)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    q, k, v = (torch.randn(2, 128, n, 64, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_() for n in (8, 2, 2))
+    try:
+        torch.library.opcheck(fa_ops._flash_op,
+                              (q, k, v, True, None, None, 0.125))
+    except Exception as e:  # opcheck's OpCheckError names the failed check
+        failures.append(f"opcheck of repro_torch::flash_attention: {e}")
+        return "failed"
+    return "passed"
+
+
 def check_kernels(dev, gen, failures: list) -> None:
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, launch_plan, sm_count,
+    )
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm, kernel_path
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -385,6 +455,16 @@ def check_kernels(dev, gen, failures: list) -> None:
             results.append((f"ssd_scan {label} state {dtype}", st, sr, tol,
                             f"ssd_scan {dt_name}"))
     results += ssd_stage_checks(dev, gen)
+    # flash attention at the train paths' shapes: causal, no masks
+    for label, ((b, s, h, kh, d), dtype, tol) in FLASH_TRAIN.items():
+        q, k, v = (rand(b, s, n, d, dtype=dtype) for n in (h, kh, kh))
+        dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        results.append((f"attention train {label} {dtype}",
+                        flash_attention(q, k, v), attention_ref(q, k, v), tol,
+                        f"attention {dt_name}"))
+    b, s, h, kh, d = FLASH_TRAIN["dense-train"][0]
+    plan = launch_plan(b, s, s, h, kh, d, sm_count(dev.index))
+    opcheck = flash_opcheck(dev, gen, failures)
     torch.cuda.synchronize()
     worst = {}
     for label, out, ref, tol, key in results:
@@ -395,6 +475,11 @@ def check_kernels(dev, gen, failures: list) -> None:
                             f"over tolerance {tol}")
     phase("kernels", cases=len(results), max_abs_err=worst,
           rmsnorm_paths=rms_paths,
+          flash_train_plan={"shape": [b, s, h, kh, d],
+                            "keys_mode": plan.split_keys,
+                            "row_tiles": plan.row_tiles,
+                            "splits": plan.splits},
+          flash_opcheck=opcheck,
           tolerance={"rmsnorm bf16": BF16_TOL, "attention bf16": ATTN_BF16_TOL,
                      "rmsnorm/attention fp32": FP32_TOL,
                      "ssd_scan bf16": SSD_BF16_TOL,
@@ -716,7 +801,7 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
                             n in e.key for n in PORT_KERNELS)])
 
 
-# -- phase 9: kernel times at the serve and train shapes ------------------------
+# -- phase 13: kernel times at the serve and train shapes -----------------------
 
 
 def kernel_table(dev, gen, ctx: dict) -> list:
@@ -871,11 +956,6 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     one microbatch of mamba2-2.7b; launches from the train run.  Each
     output is held against its plain version with the kernel checks'
     bf16 tolerance."""
-    import torch.nn.functional as F
-
-    from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
-    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ops import cost as ssd_cost
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -967,73 +1047,156 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "scratch_bytes": sum(t.numel() * t.element_size() for t in scratch)})
     del scratch
 
-    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(
-        torch.bfloat16)
-    w = torch.randn(cfg.d_model, generator=gen, device=dev)
-    ops_, nbytes = rms_cost(x, w, cfg.norm_eps, x.dtype)
-    bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
-    w_lib = w.to(torch.bfloat16)
-    y, yr = fused_rmsnorm(x, w, eps=cfg.norm_eps), rmsnorm_ref(x, w,
-                                                                cfg.norm_eps)
-    err = max_err(y, yr)
-    if not close(y, yr, BF16_TOL):
-        failures.append(f"rmsnorm@train: max abs err {err:.3g} over "
-                        f"tolerance {BF16_TOL}")
-    out.append({
-        "name": "rmsnorm@train", "route": "cuda",
-        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
-        "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
-        "launches": launches("rmsnorm"),
-        "launches_per_step": per_step("rmsnorm"),
-        "shape": f"x ({b}, {s}, {cfg.d_model}) bf16, w fp32",
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: fused_rmsnorm(x, w, eps=cfg.norm_eps)),
-        "call_ms": call_ms(lambda: fused_rmsnorm(x, w, eps=cfg.norm_eps)),
-        "plain_ms": cuda_ms(lambda: rmsnorm_ref(x, w, cfg.norm_eps)),
-        "bound_ms": bms, "bound_by": by,
-        "library_ms": cuda_ms(lambda: F.rms_norm(x, (cfg.d_model,), w_lib,
-                                                 cfg.norm_eps)),
-        "library": "torch.nn.functional.rms_norm"})
+    out.append(rmsnorm_row(dev, gen, chip, "rmsnorm@train", (b, s, cfg.d_model),
+                           cfg.norm_eps, launches("rmsnorm"),
+                           per_step("rmsnorm"), failures))
     return out
 
 
-# -- phase 6: train mamba2-2.7b at full width -----------------------------------
+def rmsnorm_row(dev, gen, chip, name: str, shape: tuple, eps: float,
+                launches, per_step, failures: list) -> dict:
+    """RMSNorm at a train path's shape, x bf16 and w fp32 as in the model,
+    held against its plain version with the bf16 tolerance."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
+    from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn(d, generator=gen, device=dev)
+    ops_, nbytes = rms_cost(x, w, eps, x.dtype)
+    bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
+    w_lib = w.to(torch.bfloat16)
+    y, yr = fused_rmsnorm(x, w, eps=eps), rmsnorm_ref(x, w, eps)
+    err = max_err(y, yr)
+    if not close(y, yr, BF16_TOL):
+        failures.append(f"{name}: max abs err {err:.3g} over tolerance "
+                        f"{BF16_TOL}")
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
+        "launches": launches, "launches_per_step": per_step,
+        "shape": f"x {tuple(shape)} bf16, w fp32",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: fused_rmsnorm(x, w, eps=eps)),
+        "call_ms": call_ms(lambda: fused_rmsnorm(x, w, eps=eps)),
+        "plain_ms": cuda_ms(lambda: rmsnorm_ref(x, w, eps)),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.rms_norm(x, (d,), w_lib, eps)),
+        "library": "torch.nn.functional.rms_norm"}
+
+
+def flash_train_row(dev, gen, chip, name: str, launches, per_step,
+                    failures: list) -> dict:
+    """Flash attention at a train path's shape (``FLASH_TRAIN``): causal,
+    no masks, as ``layers.attention`` calls it; held against its plain
+    version, timed beside SDPA (causal, GQA)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import cost as fa_cost
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, launch_plan, sm_count,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    (b, s, h, kh, d), dtype, tol = FLASH_TRAIN[name]
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dtype)
+               for n in (h, kh, kh))
+    o, ref = flash_attention(q, k, v), attention_ref(q, k, v)
+    err = max_err(o, ref)
+    if not close(o, ref, tol):
+        failures.append(f"flash_attention@{name}: max abs err {err:.3g} "
+                        f"over tolerance {tol}")
+    del o, ref
+    ops_, nbytes = fa_cost(q, k, v, True)
+    bf16 = dtype == torch.bfloat16
+    bms, by = bound_ms(chip, nbytes, ops_,
+                       chip.peak_flops if bf16 else FP32_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    row = {
+        "name": f"flash_attention@{name}", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:127",
+        "launches": launches, "launches_per_step": per_step,
+        "shape": f"q ({b}, {s}, {h}, {d}) vs k/v ({b}, {s}, {kh}, {d}) "
+                 f"{'bf16' if bf16 else 'fp32'}, causal, no masks",
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: flash_attention(q, k, v)),
+        "call_ms": call_ms(lambda: flash_attention(q, k, v)),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), iters=5),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        "library": "torch.nn.functional.scaled_dot_product_attention "
+                   "(is_causal, enable_gqa)"}
+    if bf16:
+        plan = launch_plan(b, s, s, h, kh, d, sm_count(dev.index))
+        row["plan"] = {"keys_mode": plan.split_keys,
+                       "row_tiles": plan.row_tiles, "splits": plan.splits,
+                       "grid": [plan.row_tiles, b * kh, plan.splits],
+                       "combine": plan.splits > 1}
+    else:
+        row["body"] = "fp32 CUDA-core kernel (flash_f32_kernel)"
+    return row
+
+
+# -- phases 6 and 9: train at full width ----------------------------------------
 
 
 def train_launches(cfg, grad_accum: int) -> dict:
-    """Kernel launches of one train step: per microbatch, every layer's SSD
-    scan and block norm in the forward pass, again in the backward pass
-    where the layer is recomputed (remat), and the final norm once.  The
-    gradients of both ops are the plain versions' VJPs and launch no
-    kernel."""
+    """Kernel launches of one train step: per microbatch, every layer's
+    mixer (SSD scan or flash attention) and block norms in the forward
+    pass, again in the backward pass where the layer is recomputed (remat),
+    and the final norm once.  The gradients of all three ops are the plain
+    versions' VJPs and launch no kernel."""
     passes = 1 if cfg.remat_policy == "none" else 2
-    return {"ssd_scan": passes * cfg.num_layers * grad_accum,
-            "rmsnorm": (passes * cfg.num_layers + 1) * grad_accum}
+    mixers = passes * cfg.num_layers * grad_accum
+    ssm = cfg.family == "ssm"
+    norms = 1 if ssm else 2     # block norms a layer
+    return {"ssd_scan": mixers if ssm else 0,
+            "flash_attention": 0 if ssm else mixers,
+            "rmsnorm": (passes * norms * cfg.num_layers + 1) * grad_accum}
 
 
-def train_phase(dev, failures: list) -> dict:
-    from repro_torch.configs.base import get_config
-    from repro_torch.core.hardware import platform_for_device
+def kernel_counters() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
+            "flash_attention": fa_ops.LAUNCHES}
+
+
+def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
+    """``run["steps"]`` steps of ``launch.train.train`` on ``cfg``; per step
+    the loss, ce and aux, host and device ms, tokens/s, the peak memory of
+    that step and each kernel's launches, which must be
+    ``train_launches``'s."""
+    from repro_torch.core.hardware import platform_for_device
     from repro_torch.launch.train import train
     from repro_torch.tree import leaves
 
-    cfg = get_config(TRAIN_ARCH)
-    want = train_launches(cfg, TRAIN["grad_accum"])
-    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES}
+    want = train_launches(cfg, run["grad_accum"])
+    counters = kernel_counters()
     steps = []
     seen = {k: 0 for k in counters}
 
     def on_step(i, rec):
         rec = dict(rec, step=i + 1, launches={
-            k: c.count - seen[k] for k, c in counters.items()})
+            k: c.count - seen[k] for k, c in counters.items()},
+            tokens_per_s=run["batch"] * run["seq"] / (rec["host_ms"] / 1e3),
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        torch.cuda.reset_peak_memory_stats(dev)
         seen.update({k: c.count for k, c in counters.items()})
         steps.append(rec)
-        phase("train-step", **rec)
+        phase(f"{tag}-step", **rec)
         for k, n in rec["launches"].items():
             if n != want[k]:
-                failures.append(f"train step {i + 1}: {n} {k} launches, "
+                failures.append(f"{tag} step {i + 1}: {n} {k} launches, "
                                 f"expected {want[k]}")
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1041,47 +1204,46 @@ def train_phase(dev, failures: list) -> dict:
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
-    state, losses = train(cfg, steps=TRAIN["steps"], seq=TRAIN["seq"],
-                          batch=TRAIN["batch"],
-                          grad_accum=TRAIN["grad_accum"], seed=TRAIN["seed"],
-                          device=dev, on_step=on_step, log_fn=lambda _: None)
+    state, losses = train(cfg, steps=run["steps"], seq=run["seq"],
+                          batch=run["batch"], grad_accum=run["grad_accum"],
+                          seed=run["seed"], device=dev, on_step=on_step,
+                          log_fn=lambda _: None)
     wall = time.perf_counter() - t0
     launches = {k: c.count for k, c in counters.items()}
     if not all(math.isfinite(x) for x in losses):
-        failures.append(f"train: non-finite losses {losses}")
+        failures.append(f"{tag}: non-finite losses {losses}")
     n_params = sum(p.numel() for p in leaves(state.params))
-    phase("train", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-          params=n_params, **TRAIN, remat=cfg.remat_policy,
-          losses=losses, launches=launches, launches_per_step_expected=want,
-          max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+    phase(tag, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          vocab=cfg.vocab_size, params=n_params, **run,
+          remat=cfg.remat_policy, losses=losses, launches=launches,
+          launches_per_step_expected=want,
+          max_memory_allocated_gb=max(r["peak_gb"] for r in steps),
           seconds=wall)
-    return {"cfg": cfg, "state": state, "launches": launches,
-            "last_step_ms": steps[-1]["host_ms"],
+    return {"cfg": cfg, "run": run, "state": state, "launches": launches,
+            "steps": steps, "last_step_ms": steps[-1]["host_ms"],
             "platform": platform_for_device(torch.cuda.get_device_name(dev))}
 
 
-def profile_train_step(dev, ctx: dict) -> None:
+def profile_train_step(dev, ctx: dict, tag: str) -> None:
     """One more step of the same run under torch.profiler: the card's busy
     time against the host wall time of that step, and the kernels that take
     it.  The wall time of the run's last step, without the profiler, is
     printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
     from repro_torch.optim import cosine_with_warmup, make_optimizer
     from repro_torch.train.step import make_train_step
 
-    cfg = ctx["cfg"]
+    cfg, run = ctx["cfg"], ctx["run"]
     step = make_train_step(build_model(cfg), make_optimizer(cfg.optimizer),
                            cosine_with_warmup(3e-4, 20, 21),
-                           grad_accum=TRAIN["grad_accum"])
-    shape = ShapeConfig("train", TRAIN["seq"], TRAIN["batch"], "train")
-    src = SyntheticTokens(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                          seed=TRAIN["seed"])
+                           grad_accum=run["grad_accum"])
+    src = SyntheticTokens(cfg.vocab_size, run["seq"], run["batch"],
+                          seed=run["seed"])
     batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in src.batch_at(TRAIN["steps"]).items()}
+             for k, v in src.batch_at(run["steps"]).items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1096,7 +1258,7 @@ def profile_train_step(dev, ctx: dict) -> None:
 
     busy = sum(dev_us(e) for e in kernels) / 1e3
     if busy <= 0.0:
-        phase("train-profile", wall_ms=wall, device_busy_ms="not measured")
+        phase(tag, wall_ms=wall, device_busy_ms="not measured")
         return
     # device time by kind of kernel, and under the step's named ranges
     kinds: dict = {}
@@ -1107,9 +1269,10 @@ def profile_train_step(dev, ctx: dict) -> None:
         kinds[kind] = kinds.get(kind, 0.0) + dev_us(e) / 1e3
     ranges = device_ranges(prof)
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    phase("train-profile", wall_ms_profiled=wall, device_busy_ms=busy,
+    phase(tag, wall_ms_profiled=wall, device_busy_ms=busy,
           last_step_wall_ms=ctx["last_step_ms"], idle_share=1.0 - busy / wall,
           device_ms_by_kind=kinds, device_ms_by_range=ranges,
+          range_share_of_busy={k: v / busy for k, v in ranges.items()},
           kernel_launches=sum(e.count for e in kernels),
           top_kernels=[{"kernel": e.key[:90], "ms": dev_us(e) / 1e3,
                         "launches": e.count} for e in top])
@@ -1118,11 +1281,43 @@ def profile_train_step(dev, ctx: dict) -> None:
 # -- phase 7: SSM prefill and decode against the whole sequence -----------------
 
 
+def decode_against_prefill(model, params, tokens, prompt: int, decode: int,
+                           label: str, failures: list) -> tuple:
+    """``Model.prefill`` of ``prompt`` tokens, then ``decode`` steps, each
+    against the whole-sequence prefill at the same position: the max abs
+    errors and the logits' scales."""
+    errs, scales = [], []
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens[:, :prompt],
+                                      prompt + decode)
+        for i in range(decode):
+            pos = prompt + i
+            logits, cache = model.decode(params, cache,
+                                         tokens[:, pos:pos + 1], pos)
+            whole, _ = model.prefill(params, tokens[:, :pos + 1])
+            if not (torch.isfinite(logits).all()
+                    and logits.shape == whole.shape):
+                failures.append(f"{label} decode step {i + 1}: logits "
+                                f"{tuple(logits.shape)} not finite or not "
+                                f"the shape of {tuple(whole.shape)}")
+            errs.append(max_err(logits, whole))
+            scales.append(float(whole.abs().max()))
+    torch.cuda.synchronize()
+    return errs, scales
+
+
+def check_decode_errors(errs, scales, tol: float, label: str,
+                        failures: list) -> None:
+    for i, (e, sc) in enumerate(zip(errs, scales)):
+        if e > tol * max(1.0, sc):
+            failures.append(f"{label} decode step {i + 1}: logits differ "
+                            f"from the whole-sequence prefill by {e:.3g} "
+                            f"(scale {sc:.3g}, limit {tol} x scale)")
+
+
 def ssm_phase(dev, ctx: dict, failures: list) -> None:
     import dataclasses
 
-    from repro_torch.kernels.rmsnorm import ops as rms_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
 
     cfg, params = ctx["cfg"], ctx["state"].params
@@ -1133,71 +1328,189 @@ def ssm_phase(dev, ctx: dict, failures: list) -> None:
     # per dtype: 1 + decode prefills, each one SSD scan a layer; every
     # prefill and decode step a block norm a layer and the final norm
     want = {"ssd_scan": (1 + SSM["decode"]) * cfg.num_layers,
-            "rmsnorm": (1 + 2 * SSM["decode"]) * (cfg.num_layers + 1)}
-    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES}
+            "rmsnorm": (1 + 2 * SSM["decode"]) * (cfg.num_layers + 1),
+            "flash_attention": 0}
+    counters = kernel_counters()
     out = {}
     for dtype, tol in SSM["tol"].items():
         model = build_model(dataclasses.replace(cfg, compute_dtype=dtype))
-        errs, scales = [], []
         # this path's run: counts from zero, read right after
         for c in counters.values():
             c.reset()
-        with torch.inference_mode():
-            logits, cache = model.prefill(params, tokens[:, :SSM["prompt"]])
-            for i in range(SSM["decode"]):
-                pos = SSM["prompt"] + i
-                logits, cache = model.decode(params, cache,
-                                             tokens[:, pos:pos + 1], pos)
-                whole, _ = model.prefill(params, tokens[:, :pos + 1])
-                if not (torch.isfinite(logits).all()
-                        and logits.shape == whole.shape):
-                    failures.append(f"ssm {dtype} decode step {i + 1}: "
-                                    f"logits {tuple(logits.shape)} not finite "
-                                    f"or not the shape of "
-                                    f"{tuple(whole.shape)}")
-                errs.append(max_err(logits, whole))
-                scales.append(float(whole.abs().max()))
-        torch.cuda.synchronize()
+        errs, scales = decode_against_prefill(
+            model, params, tokens, SSM["prompt"], SSM["decode"],
+            f"ssm {dtype}", failures)
         launches = {k: c.count for k, c in counters.items()}
         if launches != want:
             failures.append(f"ssm {dtype}: launches {launches}, expected "
                             f"{want}")
-        for i, (e, sc) in enumerate(zip(errs, scales)):
-            if e > tol * max(1.0, sc):
-                failures.append(f"ssm {dtype} decode step {i + 1}: logits "
-                                f"differ from the whole-sequence prefill by "
-                                f"{e:.3g} (scale {sc:.3g}, limit {tol} x "
-                                f"scale)")
+        check_decode_errors(errs, scales, tol, f"ssm {dtype}", failures)
         out[dtype] = {"max_abs_err": errs, "logit_scale": scales, "tol": tol,
                       "launches": launches}
     phase("ssm", arch=cfg.name, batch=SSM["batch"], prompt=SSM["prompt"],
           decode=SSM["decode"], **out)
 
 
-# -- phase 8: the simulator's train-step loop at full width ---------------------
+# -- phases 10-11: dense check, MoE -----------------------------------------
 
 
-def simtrain_phase(dev, ctx: dict, failures: list) -> dict:
+def dense_check(dev, ctx: dict, failures: list) -> None:
+    """One microbatch of the dense run's model (its trained parameters)
+    through the kernel, as the run takes it, against the same microbatch
+    with attention swapped for ``attention_ref`` where ``models/layers.py``
+    calls the op: the loss and the global grad norm."""
+    from unittest import mock
+
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+    from repro_torch.tree import leaves
+
+    cfg, run, params = ctx["cfg"], ctx["run"], ctx["state"].params
+    model = build_model(cfg)
+    mb = run["batch"] // run["grad_accum"]
+    src = SyntheticTokens(cfg.vocab_size, run["seq"], run["batch"],
+                          seed=run["seed"])
+    batch = {k: torch.as_tensor(v[:mb], device=dev)
+             for k, v in src.batch_at(0).items()}
+
+    def loss_and_grad_norm():
+        flat = leaves(params)
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, flat)
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        return float(loss.detach()), float(norm)
+
+    def plain(q, k, v, *, causal=True, q_offset=None, kv_len=None,
+              sm_scale=None):
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, sm_scale=sm_scale)
+
+    fa_ops.LAUNCHES.reset()
+    kern = loss_and_grad_norm()
+    n_kernel = fa_ops.LAUNCHES.count
+    with mock.patch.object(layers, "flash_attention", plain):
+        ref = loss_and_grad_norm()
+    n_plain = fa_ops.LAUNCHES.count - n_kernel
+    want = train_launches(cfg, 1)["flash_attention"]
+    if n_kernel != want or n_plain != 0:
+        failures.append(f"dense-check: {n_kernel} kernel launches through "
+                        f"the kernel (expected {want}), {n_plain} with "
+                        "attention_ref (expected 0)")
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern, ref)]
+    if not all(math.isfinite(x) for x in kern + ref) or max(rel) > \
+            DENSE_CHECK_TOL:
+        failures.append(f"dense-check: loss and grad norm {kern} through "
+                        f"the kernel, {ref} through attention_ref (relative "
+                        f"{rel}, tolerance {DENSE_CHECK_TOL})")
+    phase("dense-check", arch=cfg.name, microbatch=[mb, run["seq"]],
+          kernel={"loss": kern[0], "grad_norm": kern[1]},
+          attention_ref={"loss": ref[0], "grad_norm": ref[1]},
+          rel_err={"loss": rel[0], "grad_norm": rel[1]},
+          tol=DENSE_CHECK_TOL, flash_launches=n_kernel)
+
+
+def moe_phase(dev, failures: list) -> dict:
+    """The moe_qwen3 variant: 3 train steps (finite losses, aux > 0,
+    launches asserted), then prefill and decode against the whole-sequence
+    prefill on the trained parameters.  Capacity dispatch keeps a token or
+    drops it by how many tokens share its group, so a decode step (one token
+    a row) and a whole-sequence prefill (groups of 32) may keep different
+    tokens where the capacity binds: the check runs at a capacity factor of
+    E / k, where no group can overflow an expert (C >= group)."""
+    import dataclasses
+
+    from repro_torch.launch.sim_accuracy import smoke_config
+    from repro_torch.models import build_model
+
+    cfg = smoke_config(MOE_ARCH)
+    ctx = train_phase(dev, failures, cfg, MOE, "moe-train")
+    auxes = [r["aux"] for r in ctx["steps"]]
+    if not all(math.isfinite(a) and a > 0 for a in auxes):
+        failures.append(f"moe: aux losses {auxes}, expected finite and > 0")
+    moe = cfg.moe
+    roomy = dataclasses.replace(
+        cfg, moe=dataclasses.replace(
+            moe, capacity_factor=moe.num_experts / moe.top_k))
+    d = MOE_DECODE
+    gen = torch.Generator(device=dev).manual_seed(d["seed"])
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (d["batch"], d["prompt"] + d["decode"]),
+                           generator=gen, device=dev)
+    calls = 1 + 2 * d["decode"]     # prefills and decode steps
+    want = {"ssd_scan": 0, "flash_attention": calls * cfg.num_layers,
+            "rmsnorm": calls * (2 * cfg.num_layers + 1)}
+    counters = kernel_counters()
+    # this path's run: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    errs, scales = decode_against_prefill(
+        build_model(roomy), ctx["state"].params, tokens, d["prompt"],
+        d["decode"], "moe", failures)
+    launches = {k: c.count for k, c in counters.items()}
+    if launches != want:
+        failures.append(f"moe decode: launches {launches}, expected {want}")
+    check_decode_errors(errs, scales, d["tol"], "moe", failures)
+    phase("moe", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          experts=moe.num_experts, top_k=moe.top_k, aux=auxes,
+          decode={**d, "capacity_factor": roomy.moe.capacity_factor,
+                  "max_abs_err": errs, "logit_scale": scales,
+                  "launches": launches})
+    return ctx
+
+
+# -- phases 8 and 12: the simulator's train-step loop ---------------------------
+
+
+def simtrain_phase(dev, cfg, seq: int, batch: int, failures: list) -> dict:
     from repro_torch.launch.sim_accuracy import run
 
-    cfg = ctx["cfg"]
-    row = run(cfg, seq=SIMTRAIN["seq"], batch=SIMTRAIN["batch"],
-              steps=SIMTRAIN["steps"], profile_repeats=SIMTRAIN["repeats"],
-              device=dev, log_fn=lambda _: None)
+    row = run(cfg, seq=seq, batch=batch, steps=SIMTRAIN["steps"],
+              profile_repeats=SIMTRAIN["repeats"], device=dev,
+              log_fn=lambda _: None)
     if not (row["measured_s"] > 0 and math.isfinite(row["sim_offline_s"])
             and math.isfinite(row["sim_refined_s"])):
-        failures.append(f"simtrain: measured {row['measured_s']}, simulated "
+        failures.append(f"simtrain {row['name']}: measured "
+                        f"{row['measured_s']}, simulated "
                         f"{row['sim_offline_s']} / {row['sim_refined_s']}")
     # one step without grad_accum: each kernel op is one node of the traced
     # graph and one launch of the real step, forward and remat recompute
     want = train_launches(cfg, grad_accum=1)
     if not (row["graph_kernel_nodes"] == want
             and row["kernel_launches_per_step"] == want):
-        failures.append(f"simtrain: kernel nodes {row['graph_kernel_nodes']}"
-                        f", launches per step "
+        failures.append(f"simtrain {row['name']}: kernel nodes "
+                        f"{row['graph_kernel_nodes']}, launches per step "
                         f"{row['kernel_launches_per_step']}, expected {want}")
     phase("simtrain", **row)
     return row
+
+
+def dense_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
+    """The kernels at the dense and MoE train paths' shapes: RMSNorm and
+    flash attention of one llama3.2-1b microbatch, flash attention of the
+    moe_qwen3 variant's batch; launches from the dense-train and moe-train
+    runs (None where no path was driven)."""
+    from repro_torch.configs.base import get_config
+
+    cfg, chip = get_config(DENSE_ARCH), ctx["platform"].chip
+
+    def counts(run: str, kernel: str, steps: int):
+        c = ctx[run]
+        return (None, None) if c is None else (c[kernel], c[kernel] / steps)
+
+    b, s = DENSE["batch"] // DENSE["grad_accum"], DENSE["seq"]
+    return [
+        rmsnorm_row(dev, gen, chip, "rmsnorm@dense-train", (b, s, cfg.d_model),
+                    cfg.norm_eps, *counts("dense", "rmsnorm", DENSE["steps"]),
+                    failures),
+        flash_train_row(dev, gen, chip, "dense-train",
+                        *counts("dense", "flash_attention", DENSE["steps"]),
+                        failures),
+        flash_train_row(dev, gen, chip, "moe_qwen3",
+                        *counts("moe", "flash_attention", MOE["steps"]),
+                        failures)]
 
 
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
@@ -1217,9 +1530,11 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
         "cfg": get_config(ARCH), "scfg": ServeConfig(**SERVE),
         "platform": platform, "trace": trace, "launches": None,
         "forward_calls": None})
-    return table + train_kernel_table(dev, gen, {
+    table += train_kernel_table(dev, gen, {
         "cfg": get_config(TRAIN_ARCH), "platform": platform,
         "launches": None, "ptxas": ptxas}, failures)
+    return table + dense_kernel_table(dev, gen, {
+        "platform": platform, "dense": None, "moe": None}, failures)
 
 
 def main() -> int:
@@ -1275,16 +1590,36 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
 
-    tctx = train_phase(dev, failures)
-    profile_train_step(dev, tctx)
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.sim_accuracy import smoke_config
+
+    tctx = train_phase(dev, failures, get_config(TRAIN_ARCH), TRAIN, "train")
+    profile_train_step(dev, tctx, "train-profile")
     tctx["state"] = tctx["state"]._replace(opt_state=None)
     ssm_phase(dev, tctx, failures)
     tctx["ptxas"] = ptxas
     table += train_kernel_table(dev, gen, tctx, failures)
-    cfg = tctx["cfg"]
+    cfg, platform = tctx["cfg"], tctx["platform"]
     del tctx
     torch.cuda.empty_cache()
-    simtrain_phase(dev, {"cfg": cfg}, failures)
+    simtrain_phase(dev, cfg, SIMTRAIN["seq"], SIMTRAIN["batch"], failures)
+
+    dctx = train_phase(dev, failures, get_config(DENSE_ARCH), DENSE,
+                       "dense-train")
+    profile_train_step(dev, dctx, "dense-train-profile")
+    dense_check(dev, dctx, failures)
+    dense_cfg, dense_launches = dctx["cfg"], dctx["launches"]
+    del dctx
+    torch.cuda.empty_cache()
+    moe_launches = moe_phase(dev, failures)["launches"]
+    table += dense_kernel_table(dev, gen, {
+        "platform": platform, "dense": dense_launches,
+        "moe": moe_launches}, failures)
+    torch.cuda.empty_cache()
+    simtrain_phase(dev, dense_cfg, DENSE["seq"],
+                   DENSE["batch"] // DENSE["grad_accum"], failures)
+    simtrain_phase(dev, smoke_config(MOE_ARCH), MOE["seq"], MOE["batch"],
+                   failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -23,10 +23,13 @@ the estimator maps (``core/estimator.py``):
 * everything else -> ``elementwise`` (transcendentals count 7 operations
   an element, as in the JAX package's HLO costing);
 * each hand-written kernel op (``repro_torch::ssd_scan``,
-  ``repro_torch::rmsnorm``) -> one ``custom-call`` node, the analog of one
-  ``pallas_call``, with ``meta["kernel"]`` its name, its operations and
-  bytes from the op's own ``cost`` (the bound ``chip_smoke.py`` reports),
-  and ``meta["call"]`` the argument specs the new-op profiler replays.
+  ``repro_torch::rmsnorm``, ``repro_torch::flash_attention``) -> one
+  ``custom-call`` node, the analog of one ``pallas_call``, with
+  ``meta["kernel"]`` its name, its operations and bytes from the op's own
+  ``cost`` (the bound ``chip_smoke.py`` reports), and ``meta["call"]`` the
+  argument specs the new-op profiler replays (a ``None`` mask stays
+  ``None``).  The ops' backward passes are their plain versions' VJPs,
+  traced as ATen ops.
 
 Flops are counted as in the JAX package's parser: 2 per multiply-add of a
 contraction, one per output element elsewhere.  Bytes are the tensors an op
@@ -42,12 +45,15 @@ from torch.fx.experimental.proxy_tensor import make_fx
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.graph import DataflowGraph
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.tree import leaves, unflatten_like
 
-# the port's kernel ops and their costs (operations, bytes)
-KERNEL_COSTS = {"ssd_scan": ssd_ops.cost, "rmsnorm": rms_ops.cost}
+# the port's kernel ops and their costs (operations, bytes), each called
+# with the op's own positional arguments
+KERNEL_COSTS = {"ssd_scan": ssd_ops.cost, "rmsnorm": rms_ops.cost,
+                "flash_attention": fa_ops.cost}
 
 _VIEWS = {
     "view", "_unsafe_view", "reshape", "permute", "transpose", "t",

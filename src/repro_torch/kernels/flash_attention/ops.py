@@ -7,8 +7,13 @@ as two optional per-row int32 tensors, ``q_offset`` and ``kv_len`` (see
 :mod:`~repro_torch.kernels.flash_attention.ref`), which stay on the device so
 the serve path never synchronises to build a mask.  Tensors on the CPU go
 through :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`; CUDA
-tensors launch the kernel or raise.  Serving takes no gradient, so there is
-no autograd wrapper yet.
+tensors launch the kernel or raise.
+
+The op is ``torch.library.custom_op("repro_torch::flash_attention")``: one
+node of a traced graph per launch, a fake implementation for shapes, and a
+gradient that is the plain version's VJP recomputed from the saved q, k and
+v, as the JAX package's ``custom_vjp`` recomputes ``attention_ref`` (there
+is no backward kernel on either side).
 
 In bf16 the kernel packs each GQA group into one block's rows and splits the
 KV sweep across blocks; :func:`launch_plan` chooses the layout and the number
@@ -157,7 +162,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def cost(q, k, v, causal: bool, q_offset=None, kv_len=None
+def cost(q, k, v, causal: bool, q_offset=None, kv_len=None, sm_scale=None
          ) -> tuple[float, float]:
     """(operations, bytes) of one call: the least work of the function.
 
@@ -166,9 +171,18 @@ def cost(q, k, v, causal: bool, q_offset=None, kv_len=None
     written once; each KV head's K and V read once for every key that any
     query of the batch row sees (the GQA group shares them); the int32
     masks.  ``q_offset`` and ``kv_len`` are read on the host: call it
-    outside any timed region.  It is the bound in ``chip_smoke.py``."""
+    outside any timed region.  It is the bound in ``chip_smoke.py`` and the
+    cost of the op's node in a traced graph (``sm_scale`` does not change
+    it), where the masks must be ``None``: a traced mask has no values."""
+    from torch._subclasses.fake_tensor import is_fake
+
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if t is not None and is_fake(t):
+            raise ValueError(f"flash attention cost: {name} is a traced "
+                             "tensor; the cost reads the masks' values on "
+                             "the host, so a traced call must pass None")
     offs = [0] * b if q_offset is None else [int(x) for x in q_offset.tolist()]
     lens = [skv] * b if kv_len is None else [int(x) for x in kv_len.tolist()]
     seen = read = 0
@@ -186,17 +200,60 @@ def cost(q, k, v, causal: bool, q_offset=None, kv_len=None
     return float(4 * h * d * seen), float(nbytes)
 
 
+def _impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          q_offset: Optional[torch.Tensor], kv_len: Optional[torch.Tensor],
+          sm_scale: float) -> torch.Tensor:
+    if q.device.type == "cpu":
+        # contiguous, as the kernel's output (and the fake's)
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, sm_scale=sm_scale).contiguous()
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention: no kernel for device {q.device}")
+    return _kernel(q, k, v, causal, q_offset, kv_len, sm_scale)
+
+
+_flash_op = torch.library.custom_op("repro_torch::flash_attention",
+                                    mutates_args=())(_impl)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, q_offset, kv_len, sm_scale):
+    return q.new_empty(q.shape)
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, causal, q_offset, kv_len, sm_scale = inputs
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+    ctx.save_for_backward(q, k, v, q_offset, kv_len)
+
+
+def _backward(ctx, g):
+    q, k, v, q_offset, kv_len = ctx.saved_tensors
+    with torch.enable_grad(), torch.profiler.record_function(
+            "repro_torch::flash_attention.backward"):
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip((q, k, v), ctx.needs_input_grad)]
+        o = attention_ref(*leaves, causal=ctx.causal, q_offset=q_offset,
+                          kv_len=kv_len, sm_scale=ctx.sm_scale)
+        want = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(o, want, g))
+    return (*(next(grads) if t.requires_grad else None for t in leaves),
+            None, None, None, None)
+
+
+_flash_op.register_autograd(_backward, setup_context=_setup)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     q_offset: Optional[torch.Tensor] = None,
                     kv_len: Optional[torch.Tensor] = None,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention with native GQA.  q: (B, Sq, H, D); k, v: (B, Skv, K, D);
-    q_offset, kv_len: optional (B,) integer tensors.  Returns (B, Sq, H, D)."""
-    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, q_offset=q_offset,
-                             kv_len=kv_len, sm_scale=scale)
-    if q.device.type != "cuda":
+    q_offset, kv_len: optional (B,) integer tensors.  Returns (B, Sq, H, D).
+    Differentiable in q, k and v."""
+    if q.device.type not in ("cpu", "cuda"):
+        # checked before dispatch: a meta tensor would reach the fake kernel
         raise ValueError(f"flash attention: no kernel for device {q.device}")
-    return _kernel(q, k, v, causal, q_offset, kv_len, scale)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _flash_op(q, k, v, bool(causal), q_offset, kv_len, float(scale))

@@ -20,13 +20,18 @@ architecture, on the port's device (``cuda`` unless asked for the CPU):
 
 The JAX benchmark profiles before it compiles the step; the port traces
 first, because the step's sizes decide how far the grids reach.  The rows
-keep the JAX package's names (``table2_ssm_mamba2``)::
+are the JAX benchmark's three, one model per mixer family, and keep its
+names (``table2_dense_llama``, ``table2_ssm_mamba2``, ``table2_moe_qwen3``)::
 
-    PYTHONPATH=src python -m repro_torch.launch.sim_accuracy --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.sim_accuracy --smoke --device cpu \\
+        --arch llama3.2-1b
 
-With ``--smoke`` the model is the JAX benchmark's reduced ``ssm_mamba2``
-(4 layers, d_model 256, vocab 2048, fp32, no remat; seq 128, batch 8);
-without it, mamba2-2.7b at full width.
+With ``--smoke`` the model is the JAX benchmark's reduced variant (4 layers,
+d_model 256, 8/4 heads of 32, vocab 2048, fp32, no remat; the MoE keeps the
+smoke config's 4 experts, top-2; seq 128, batch 8); without it, the model
+at full width on one microbatch of ``chip_smoke.py``'s train cell.  The
+MoE model runs only reduced: qwen3-moe-235b-a22b's training state (~3.8 TB)
+needs expert parallelism (ROADMAP.md, 'Distributed').
 """
 from __future__ import annotations
 
@@ -37,8 +42,9 @@ import time
 
 import torch
 
-# the JAX benchmark's row names for the architectures the port trains
-ROWS = {"mamba2-2.7b": "ssm_mamba2"}
+# the JAX benchmark's row names (bench_sim_accuracy._models), by architecture
+ROWS = {"llama3.2-1b": "dense_llama", "mamba2-2.7b": "ssm_mamba2",
+        "qwen3-moe-235b-a22b": "moe_qwen3"}
 # the JAX benchmark's profile grids, sized for its CPU-sized models;
 # profile_grids extends them to a step's sizes
 MATMUL_SIZES = (64, 128, 256, 512, 1024, 2048)
@@ -117,6 +123,7 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     from repro_torch.core.simulator import simulate
     from repro_torch.data import SyntheticTokens
     from repro_torch.device import resolve_device, synchronize
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
@@ -185,7 +192,8 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
                for k, v in src.batch_at(0).items()}
     state, _ = step(state, batch_t)           # warm-up (first-call costs)
     synchronize(dev)
-    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES}
+    counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
+                "flash_attention": fa_ops.LAUNCHES}
     before = {k: c.count for k, c in counters.items()}
     t1 = time.perf_counter()
     for _ in range(steps):
@@ -235,6 +243,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = ap.parse_args(argv)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "moe" and not args.smoke:
+        ap.error(f"{args.arch} at full width needs expert parallelism "
+                 "(ROADMAP.md, 'Distributed'); pass --smoke")
     # the JAX benchmark's cell with --smoke; one microbatch of the train
     # cell of chip_smoke.py without
     row = run(cfg, seq=128 if args.smoke else 2048,

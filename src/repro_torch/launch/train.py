@@ -6,7 +6,7 @@ random, drawn from a ``torch.Generator`` seeded with ``--seed``; tokens come
 from the synthetic pipeline (``repro_torch.data``), bit-equal to the JAX
 package's batches.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --device cpu --steps 3 --seq 64 --batch 4
 
 Each step is timed twice: on the host, up to the loss's host sync (as the
@@ -15,7 +15,9 @@ events around the step.
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
 ``--pp`` and ``--compression`` (distributed), ``--ckpt-dir`` (checkpointing)
-and ``--obs`` (telemetry replay).  Only the ``ssm`` family trains so far.
+and ``--obs`` (telemetry replay).  The ``dense``, ``moe``, ``vlm`` and
+``ssm`` families train; ``hybrid`` (the jamba superblock) and ``audio``
+(encdec) raise with their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -61,9 +63,9 @@ def train(
 ):
     """Train ``steps`` steps; returns ``(state, losses)``.
 
-    ``on_step(i, record)`` is called after each step with its loss, grad
-    norm, learning rate, host milliseconds and (on the card) device
-    milliseconds.
+    ``on_step(i, record)`` is called after each step with its loss, the
+    model's ``ce`` and ``aux``, grad norm, learning rate, host milliseconds
+    and (on the card) device milliseconds.
     """
     asked = {"pp": pp > 1, "compression": compression not in ("", "none"),
              "ckpt_dir": bool(ckpt_dir), "obs": obs}
@@ -103,6 +105,7 @@ def train(
                 events[1].record()
                 events[1].synchronize()
                 record["device_ms"] = events[0].elapsed_time(events[1])
+            record.update({k: float(metrics[k]) for k in ("ce", "aux")})
             losses.append(loss)
             if on_step is not None:
                 on_step(i, record)
@@ -124,7 +127,8 @@ def train(
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-2.7b",
-                    help="an ssm architecture (the family that trains)")
+                    help="a dense, moe, vlm or ssm architecture (the "
+                         "families that train)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config of the same family (CPU-sized)")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,11 +1,11 @@
-"""Model facade over the ported families (dense and ssm, so far).
+"""Model facade over the ported families (dense, moe, vlm and ssm, so far).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors::
 
     params = model.init(torch.Generator(device).manual_seed(0))
-    loss, metrics = model.loss(params, batch)               # ssm only, so far
-    logits, cache = model.prefill(params, tokens)           # (B, S) tokens
+    loss, metrics = model.loss(params, batch)       # metrics: ce, aux
+    logits, cache = model.prefill(params, tokens)   # (B, S) tokens [+ patches]
     logits, cache = model.decode(params, cache, token, cache_len)
 
 :func:`load_jax_params` takes the JAX package's parameter tree (as numpy
@@ -29,12 +29,11 @@ from repro_torch.tree import tree_map
 
 # JAX-package families still to port, and the ROADMAP.md item that ports them
 _WAITING = {
-    "moe": "MoE + VLM",
-    "vlm": "MoE + VLM",
     "hybrid": "the jamba superblock",
     "audio": "encdec",
 }
-_MODULES = {"dense": transformer, "ssm": hybrid}
+_MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+            "ssm": hybrid}
 
 
 @dataclass(frozen=True)
@@ -42,7 +41,8 @@ class Model:
     cfg: ArchConfig
     init: Callable  # generator -> params on generator.device
     loss: Callable  # (params, batch) -> (loss, metrics)
-    prefill: Callable  # (params, tokens, max_len=None) -> (logits, cache)
+    # (params, tokens, max_len=None, patches=None) -> (logits, cache)
+    prefill: Callable
     decode: Callable  # (params, cache, token, cache_len) -> (logits, cache)
     init_cache: Callable  # (batch, max_len, dtype, device) -> cache
 
@@ -60,17 +60,14 @@ def build_model(cfg: ArchConfig) -> Model:
         return mod.init_params(gen, cfg)
 
     def loss(params, batch):
-        if mod is transformer:
-            raise NotImplementedError(
-                f"{cfg.name}: dense training waits for the flash-attention "
-                "gradient (ROADMAP.md, 'dense and MoE training')"
-            )
         return mod.loss_fn(params, batch, cfg)
 
-    def prefill(params, tokens, max_len=None):
-        return mod.prefill(
-            params, tokens, cfg, tokens.shape[1] if max_len is None else max_len
-        )
+    def prefill(params, tokens, max_len=None, patches=None):
+        if max_len is None:
+            max_len = tokens.shape[1] + cfg.num_patches
+        if patches is None:
+            return mod.prefill(params, tokens, cfg, max_len)
+        return mod.prefill(params, tokens, cfg, max_len, patches=patches)
 
     def decode(params, cache, token, cache_len):
         return mod.decode_step(params, cache, token, cache_len, cfg)
@@ -85,7 +82,9 @@ def build_model(cfg: ArchConfig) -> Model:
 def load_jax_params(tree, device="cuda") -> dict:
     """The JAX package's parameter tree (numpy leaves) as tensors on
     ``device``, keys, shapes and dtypes unchanged (the mamba tree's fp32
-    ``A_log``, ``dt_bias`` and ``D_skip`` stay fp32 beside bf16 weights)."""
+    ``A_log``, ``dt_bias`` and ``D_skip`` and the MoE router stay fp32
+    beside bf16 weights; the experts' ``wg``/``wu``/``wd`` stay stacked
+    (L, E, ., .))."""
     def leaf(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":   # ml_dtypes bf16: go through fp32

@@ -3,8 +3,8 @@
 The torch counterpart of the ``ssm`` branches of the JAX package's
 ``models/hybrid.py``.  Block parameters are stacked on a leading ``layers``
 axis, as there, and the JAX ``lax.scan`` over that axis is a Python loop.
-The hybrid (Jamba) superblock needs MoE and is not ported yet: every entry
-point raises for the ``hybrid`` family.
+The hybrid (Jamba) superblock is not ported yet: every entry point raises
+for the ``hybrid`` family.
 """
 from __future__ import annotations
 
@@ -24,8 +24,8 @@ from repro_torch.models.transformer import (
 def _ssm_only(cfg: ArchConfig) -> None:
     if cfg.family != "ssm":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} superblock needs MoE, which is "
-            "not ported yet (ROADMAP.md, 'the jamba superblock')"
+            f"{cfg.name}: the {cfg.family!r} superblock is not ported yet "
+            "(ROADMAP.md, 'the jamba superblock')"
         )
 
 

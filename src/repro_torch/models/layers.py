@@ -1,5 +1,5 @@
-"""Shared model substrate, dense subset: norms, RoPE, GQA attention with a
-bf16 KV cache, the SwiGLU MLP, embedding, head and cross-entropy.
+"""Shared model substrate: norms, RoPE, GQA attention (full-sequence, and
+with a bf16 KV cache), the SwiGLU MLP, embedding, head and cross-entropy.
 
 Parameters are plain dicts of tensors with the JAX package's keys and shapes
 (``repro.models.layers``), so a parameter tree crosses between the two
@@ -136,6 +136,29 @@ def _sdpa(q, k, v, cfg, *, q_offset: Optional[torch.Tensor] = None,
         )
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len)
+
+
+def attention(p, x, cfg, *, positions, mask=None, cross_kv=None,
+              bidirectional: bool = False):
+    """Full-sequence causal self-attention (train, no cache read), through
+    the flash-attention op and so through the kernel.  Query i sees keys
+    j <= i, the JAX dense path's ``causal_mask(sq, skv, 0)``.
+
+    Cross-attention and bidirectional visibility belong to the encoder-
+    decoder family, and an explicit mask to no caller of the port: each
+    raises."""
+    if cross_kv is not None or bidirectional:
+        raise NotImplementedError(
+            "cross-attention and bidirectional attention wait for the "
+            "encoder-decoder family (ROADMAP.md, 'encdec')")
+    if mask is not None:
+        raise NotImplementedError(
+            "attention takes no explicit mask in the port: the flash op "
+            "masks causally (and by per-row q_offset / kv_len)")
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = _sdpa(q, k, v, cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(cdt))
 
 
 def causal_mask(sq: int, skv: int, offset: int = 0, device=None):

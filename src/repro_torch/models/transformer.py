@@ -1,32 +1,45 @@
-"""Decoder-only transformer stack, dense family: init, prefill, decode.
+"""Decoder-only transformer stack (dense / moe / vlm families): init, loss,
+prefill, decode.
 
 Reached through :func:`repro_torch.models.build.build_model`, which refuses
 the families not ported yet.
 
 Block parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so parameter trees cross between the packages unchanged; the JAX
-``lax.scan`` over that axis is a Python loop over it here.  Dense training
-(``loss_fn``, ``run_stack``) waits for the flash-attention gradient; the
-per-layer remat (:func:`_remat`) serves the SSM stack already.
+``lax.scan`` over that axis is a Python loop over it here, each layer under
+the config's remat (:func:`_remat`).  A block's FFN is the SwiGLU MLP or,
+in the ``moe`` family, the routed experts (plus a shared expert where the
+config has one); the ``vlm`` family prepends projected patch embeddings to
+the text.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """One decoder block: attention + SwiGLU MLP."""
+    """One decoder block: attention + FFN (dense or MoE [+ shared expert])."""
     dev = gen.device
-    return {
+    params = {
         "attn": L.init_attention(gen, cfg),
         "norm1": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
         "norm2": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
-        "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype),
     }
+    if cfg.moe is not None and cfg.moe.every_k == 1:
+        params["moe"] = M.init_moe(gen, cfg.d_model, cfg.moe, cfg.param_dtype)
+        if cfg.moe.num_shared_experts:
+            params["shared_mlp"] = L.init_mlp(
+                gen, cfg.d_model, cfg.moe.num_shared_experts * cfg.d_ff,
+                cfg.param_dtype)
+    else:
+        params["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    return params
 
 
 def _stack(trees: list):
@@ -48,6 +61,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
         params["head"] = L._init_dense(
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, cfg.param_dtype
         )
+    if cfg.num_patches:  # vlm multimodal projector
+        params["projector"] = {
+            "w1": L._init_dense(gen, (cfg.vision_dim, cfg.d_model),
+                                cfg.vision_dim, cfg.param_dtype),
+            "w2": L._init_dense(gen, (cfg.d_model, cfg.d_model), cfg.d_model,
+                                cfg.param_dtype),
+        }
     return params
 
 
@@ -88,6 +108,75 @@ def _remat(fn, cfg: ArchConfig):
     return run
 
 
+def _ffn(p, h, cfg: ArchConfig):
+    """The block's FFN on the normed hidden h: (y, aux loss)."""
+    cdt = cfg.compute_dtype
+    if "moe" not in p:
+        return L.mlp(p["mlp"], h, cdt), 0.0
+    y, aux = M.moe_ffn(p["moe"], h, cfg.moe, cdt)
+    if "shared_mlp" in p:
+        y = y + L.mlp(p["shared_mlp"], h, cdt)
+    return y, aux
+
+
+def apply_block(p, x, cfg: ArchConfig, *, positions, mask=None):
+    """One block over the whole sequence: (x, aux loss)."""
+    cdt = cfg.compute_dtype
+    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, cdt)
+    x = x + L.attention(p["attn"], h, cfg, positions=positions, mask=mask)
+    h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, cdt)
+    y, aux = _ffn(p, h, cfg)
+    return x + y, aux
+
+
+def run_stack(params, x, cfg: ArchConfig, *, positions, mask=None):
+    """The block stack, each layer under the config's remat.  Returns
+    (hidden, aux_loss_sum)."""
+
+    def body(h, bp):
+        return apply_block(bp, h, cfg, positions=positions, mask=mask)
+
+    body = _remat(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in unbind_layers(params["blocks"]):
+        x, a = body(x, bp)
+        aux = aux + a
+    return x, aux
+
+
+def _embed_inputs(params, batch, cfg: ArchConfig):
+    """Returns (h, positions, text_start).  For vlm, prepends the projected
+    patch embeddings; text occupies positions [num_patches, num_patches+S)."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    h = L.embed(params["embed"], batch["tokens"], cdt)
+    b = h.shape[0]
+    if cfg.num_patches:
+        pr = params["projector"]
+        pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(cdt),
+                          pr["w1"].to(cdt))
+        pe = F.gelu(pe, approximate="tanh")   # jax.nn.gelu's default
+        pe = torch.einsum("bpd,de->bpe", pe, pr["w2"].to(cdt))
+        h = torch.cat([pe, h], dim=1)
+    s = h.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(
+        b, s)
+    return h, positions, cfg.num_patches
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """Mean next-token cross-entropy over the text plus the MoE aux loss:
+    (loss, {"ce", "aux"})."""
+    h, positions, text_start = _embed_inputs(params, batch, cfg)
+    h, aux = run_stack(params, h, cfg, positions=positions)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
+    if text_start:
+        h = h[:, text_start:]
+    w, transpose = head_weight(params, cfg)
+    ce = L.chunked_xent(h, w, batch["labels"], transpose=transpose,
+                        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
 def head_weight(params, cfg: ArchConfig):
     if cfg.tie_embeddings:
         return params["embed"], True
@@ -101,17 +190,20 @@ def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
             for k, v in one.items()}
 
 
-def prefill(params, tokens, cfg: ArchConfig, max_len: int):
+def prefill(params, tokens, cfg: ArchConfig, max_len: int, patches=None):
     """Forward pass writing the KV cache; returns (last-token logits, cache).
 
-    tokens: (B, S) integer.
+    tokens: (B, S) integer; patches: (B, num_patches, vision_dim), the vlm
+    family's image input (the cache then holds patches and text).
     """
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], tokens, cdt)
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
-    cache = init_cache(b, max_len, cfg, cdt, tokens.device)
+    batch = {"tokens": tokens}
+    if cfg.num_patches:
+        if patches is None:
+            raise ValueError(f"{cfg.name}: a vlm prefill needs its patches")
+        batch["patches"] = patches
+    h, positions, _ = _embed_inputs(params, batch, cfg)
+    cache = init_cache(h.shape[0], max_len, cfg, cdt, tokens.device)
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache.items()}
@@ -120,7 +212,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
                                    cache=lc)
         h = h + a
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + L.mlp(bp["mlp"], n, cdt)
+        h = h + _ffn(bp, n, cfg)[0]
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
     return L.logits_head(w, h[:, -1:], transpose=transpose), cache
@@ -139,7 +231,7 @@ def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
                                   cache_len=cache_len)
         h = h + a
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + L.mlp(bp["mlp"], n, cdt)
+        h = h + _ffn(bp, n, cfg)[0]
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
     return L.logits_head(w, h, transpose=transpose), cache

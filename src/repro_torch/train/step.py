@@ -81,8 +81,9 @@ def make_train_step(
     """Returns train_step(state, batch) -> (state, metrics).
 
     grad_accum > 1 runs the microbatches in order, accumulating the gradient
-    (and the model's metrics) in fp32, then applies the optimizer once to
-    their mean.  The step consumes ``state``: its tensors are updated in
+    (and the model's metrics, ``ce`` and ``aux``) in fp32, then applies the
+    optimizer once to their mean.  The step's metrics are the loss, grad
+    norm and learning rate beside the model's, as in the JAX step.  The step consumes ``state``: its tensors are updated in
     place and belong to the returned state.
     """
     _no_compression(compression)

@@ -334,3 +334,86 @@ def test_ssd_and_rmsnorm_gradients_on_card_match_cpu(dev):
         grads.append([g.cpu() for g in torch.autograd.grad(loss, ins + [w])])
     for g_cpu, g_dev in zip(*grads):
         torch.testing.assert_close(g_dev, g_cpu, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_flash_op_at_the_train_shape_matches_plain_version(dev, dtype, tol):
+    """One microbatch of llama3.2-1b: q (2, 2048, 32, 64) against k, v
+    (2, 2048, 8, 64), causal, no masks, as ``layers.attention`` calls it."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(2, 2048, n, 64, generator=g, device=dev).to(dtype)
+               for n in (32, 8, 8))
+    n0 = fa.LAUNCHES.count
+    out = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES.count == n0 + 1
+    torch.testing.assert_close(out, attention_ref(q, k, v), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_gradient_on_card_matches_plain_vjp(dev):
+    """The op's gradient is the plain version's VJP: on the card it equals
+    ``attention_ref``'s own gradient there and the CPU's; the backward
+    launches no kernel."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(2)
+    cpu = [torch.tensor(rng.standard_normal((2, 64, n, 32)),
+                        dtype=torch.float32) for n in (4, 2, 2)]
+    gout = torch.tensor(rng.standard_normal((2, 64, 4, 32)),
+                        dtype=torch.float32)
+    grads = {}
+    for name, device, fn in (("cpu", "cpu", fa.flash_attention),
+                             ("op", dev, fa.flash_attention),
+                             ("plain", dev, attention_ref)):
+        ins = [t.to(device).requires_grad_() for t in cpu]
+        out = fn(*ins, causal=True)
+        n0 = fa.LAUNCHES.count
+        grads[name] = [g.cpu() for g in torch.autograd.grad(
+            out, ins, gout.to(device))]
+        assert fa.LAUNCHES.count == n0
+    for a, b, c in zip(grads["op"], grads["plain"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(a, c, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_opcheck_on_card(dev):
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 128, n, 64, generator=g, device=dev).to(
+        torch.bfloat16).requires_grad_() for n in (8, 2, 2))
+    torch.library.opcheck(fa._flash_op, (q, k, v, True, None, None, 0.125))
+
+
+def test_llama_train_step_at_full_width_two_layers(dev):
+    """One train step of llama3.2-1b at its widths (2 of its 16 layers),
+    bf16 compute, per-layer remat, grad_accum 2: a finite loss, and per
+    microbatch a flash launch a layer for the forward and the recompute and
+    an RMSNorm launch per block norm in each, plus the final norm."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    model = build_model(cfg)
+    opt = adamw()
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)
+    step = make_train_step(model, opt, cosine_with_warmup(3e-4, 1, 10),
+                           grad_accum=2)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokens(
+        cfg.vocab_size, 512, 4, seed=0).batch_at(0).items()}
+    f0, r0 = fa.LAUNCHES.count, rms.LAUNCHES.count
+    state, metrics = step(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert float(metrics["aux"]) == 0.0
+    assert fa.LAUNCHES.count - f0 == 2 * 2 * 2
+    assert rms.LAUNCHES.count - r0 == (2 * 2 * 2 + 1) * 2

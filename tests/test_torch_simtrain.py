@@ -286,9 +286,11 @@ def test_sim_accuracy_runs_end_to_end_on_the_cpu(monkeypatch):
     assert row["provenance_offline"]["learned"] > 0
     assert row["provenance_refined"]["db"] > row["provenance_offline"]["db"]
     assert row["graph_kinds"]["custom-call"] == 2 + 3   # SSD, RMSNorm
-    assert row["graph_kernel_nodes"] == {"ssd_scan": 2, "rmsnorm": 3}
+    assert row["graph_kernel_nodes"] == {"ssd_scan": 2, "rmsnorm": 3,
+                                         "flash_attention": 0}
     # the head's contraction (64 x 256 x 2048) needs sides up to 512
     assert row["matmul_sizes"] == [32, 64, 128, 256, 512]
     assert row["vector_sizes"][:2] == [2**10, 2**12]
     # the CPU step runs the plain versions: no kernel launches
-    assert row["kernel_launches_per_step"] == {"ssd_scan": 0, "rmsnorm": 0}
+    assert row["kernel_launches_per_step"] == {"ssd_scan": 0, "rmsnorm": 0,
+                                               "flash_attention": 0}

@@ -7,8 +7,6 @@ Parameters and gradients are made with numpy from a seed and handed to both
 packages; the model's initial weights come from the JAX package's init and
 cross through ``load_jax_params``.
 """
-import dataclasses
-
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -219,11 +217,3 @@ def test_distributed_and_compressed_steps_raise(mamba_pair):
         make_train_step(tmodel, topt, optim.cosine_with_warmup(1, 1, 2),
                         axis_name="data")
 
-
-def test_dense_training_waits_for_flash_attention_gradient():
-    cfg = port_configs.smoke_variant(port_configs.get_config("llama3.2-1b"))
-    model = build_model(dataclasses.replace(cfg, num_layers=1))
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="flash-attention gradient"):
-        model.loss(params, {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-                            "labels": torch.zeros((1, 8), dtype=torch.int32)})
