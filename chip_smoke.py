@@ -81,8 +81,37 @@ Phases, each printing one line of numbers:
              at a capacity no token overflows on either path;
 12. simtrain rows for ``dense_llama`` at full width on one microbatch (32
              flash and 65 RMSNorm nodes and launches) and ``moe_qwen3`` at
-             the benchmark's variant (4 and 9);
-13. a JSON line of every kernel at the serve and train shapes: launches on
+             the benchmark's variant (4 and 9); each row's measured step is
+             the median of 5 steps timed one by one, with their minimum,
+             maximum and the card's busy time of one more step;
+13. moe-serve — qwen3-moe-235b-a22b at its published widths (d_model 4096,
+             64/4 heads of 128, 128 experts top-8 of 1536, capacity 1.25,
+             groups of 512, vocab 151,936; 4 of its 94 layers, random
+             weights) through phase 4's serve path (calibrate, engine,
+             twins; launches asserted), a profiled decode step, and two of
+             the trace's requests prefilled chunk by chunk and decoded
+             together against the sequential ``Model.prefill``/``decode``
+             at a capacity no dispatch group can overflow (``moe-serve-
+             check``);
+14. jamba   — one whole period of jamba-1.5-large-398b (1 attention : 7
+             mamba, MoE 16 experts top-2 on every other layer, 64/8 heads of
+             128, d_state 128, vocab 65,536) with d_model cut to 1024 and
+             the FFNs to 3072: 3 train steps at seq 2048, batch 4 (2 flash,
+             14 SSD and 33 RMSNorm launches a step asserted, aux > 0), then
+             a 512-token prefill and 8 decode steps against the whole-
+             sequence prefill in fp32 at a capacity no group overflows;
+15. encdec-train — seamless-m4t-large-v2 at its published widths and depth
+             (24 + 24 layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab
+             256,206, untied head; fp32 master weights, bf16 compute,
+             AdamW): seq 2048 with frames of 2048, batch 8, grad_accum 2, 3
+             steps (288 flash and 484 RMSNorm launches a step asserted), and
+             one more step under torch.profiler;
+16. encdec-check — one microbatch through the kernel against
+             ``attention_ref``, as phase 10;
+17. encdec-decode — a prefill of ``source_len`` (4096) frames and a 64-token
+             prefix, then 8 decode steps, each against the whole-sequence
+             prefill in fp32 (launches asserted);
+18. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -96,10 +125,13 @@ Phases, each printing one line of numbers:
    the resident blocks an SM that the CUDA runtime reports for it (the
    library's launch sizes held against ``launch_plan``'s).
 
-Phase 3 also holds flash attention at the train shapes (llama3.2-1b's
-microbatch in bf16, the moe_qwen3 variant's in fp32; causal, no masks)
-against its plain version, prints the bf16 launch plan, and runs
-``torch.library.opcheck`` on the op on the card.
+Phase 3 also holds flash attention at the train and decode paths' shapes
+(``FLASH_TRAIN``: llama3.2-1b's microbatch in bf16, the moe_qwen3 variant's
+in fp32, jamba's 64/8 heads of 128, seamless-m4t's non-causal encoder and
+cross-attention, its causal decoder and a decode step's cross-attention over
+4096 frames; no masks) against its plain version, prints the bf16 launch
+plan, and runs ``torch.library.opcheck`` on the op on the card.  The kernel
+rows of every path hold their kernel against its plain version again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
@@ -107,6 +139,7 @@ outside the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -204,7 +237,7 @@ PORT_KERNELS = ("flash_mma_kernel", "flash_combine_kernel",
 # the simulator's loop at full width: one microbatch of the train cell
 # (its profile grids grow from the JAX benchmark's to the traced step's
 # sizes: launch.sim_accuracy.profile_grids)
-SIMTRAIN = dict(seq=2048, batch=2, steps=3, repeats=5)
+SIMTRAIN = dict(seq=2048, batch=2, steps=5, repeats=5)
 DENSE_ARCH = "llama3.2-1b"
 # the config's grad_accum (4): microbatches of 2 x 2048 tokens; nothing cut
 DENSE = dict(seq=2048, batch=8, grad_accum=4, steps=3, seed=0)
@@ -221,9 +254,48 @@ MOE_DECODE = dict(batch=2, prompt=64, decode=8, seed=1, tol=1e-3)
 # flash attention at the train paths' shapes ((B, S, H, K, D), dtype,
 # tolerance; causal, no masks): one microbatch of llama3.2-1b, and the
 # moe_qwen3 variant's batch
-FLASH_TRAIN = {"dense-train": ((2, 2048, 32, 8, 64), torch.bfloat16,
-                               ATTN_BF16_TOL),
-               "moe_qwen3": ((8, 128, 8, 4, 32), torch.float32, FP32_TOL)}
+# flash attention at the train and decode paths' shapes ((B, Sq, Skv, H, K,
+# D), dtype, tolerance, causal; no masks): one microbatch of llama3.2-1b, the
+# moe_qwen3 variant's batch, one microbatch of the jamba variant (64/8 heads
+# of 128), one microbatch of seamless-m4t (its encoder and cross-attention
+# see every key, its decoder self-attention is causal) and a seamless decode
+# step's cross-attention over the 4096-frame memory (fp32, as the decode
+# check runs it)
+FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
+                               ATTN_BF16_TOL, True),
+               "moe_qwen3": ((8, 128, 128, 8, 4, 32), torch.float32, FP32_TOL,
+                             True),
+               "jamba-train": ((4, 2048, 2048, 64, 8, 128), torch.bfloat16,
+                               ATTN_BF16_TOL, True),
+               "encdec-train-encoder-cross": ((4, 2048, 2048, 16, 16, 64),
+                                              torch.bfloat16, ATTN_BF16_TOL,
+                                              False),
+               "encdec-train-decoder-self": ((4, 2048, 2048, 16, 16, 64),
+                                             torch.bfloat16, ATTN_BF16_TOL,
+                                             True),
+               "encdec-decode-cross": ((2, 1, 4096, 16, 16, 64), torch.float32,
+                                       FP32_TOL, False)}
+# [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
+# layers (every layer is MoE, so one whole period), through the llama serve
+# phase's engine, trace and twin; then two of the trace's requests prefilled
+# chunk by chunk and decoded together against the sequential decode, at a
+# capacity no dispatch group can overflow (bf16: the serve check's limit)
+MOE_SERVE = dict(arch="qwen3-moe-235b-a22b", layers=4, decode=8)
+# [jamba]: one whole period of jamba-1.5-large-398b (1 attention : 7 mamba,
+# MoE on every other layer, 64/8 heads of 128, 16 experts top-2, mamba head
+# 64, d_state 128, chunk 256, vocab 65,536, adafactor, full remat), d_model
+# cut to 1024 and d_ff to 3 x 1024; 3 steps at seq 2048, batch 4
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA = dict(seq=2048, batch=4, grad_accum=1, steps=3, seed=0)
+JAMBA_DECODE = dict(batch=2, prompt=512, decode=8, seed=1, tol=1e-3)
+# [encdec-*]: seamless-m4t-large-v2 at its published widths and depth (24 +
+# 24 layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab 256,206, untied
+# head, fp32 master weights, bf16 compute, AdamW); frames as long as the
+# tokens; the config's grad_accum (2).  Decode: the source_len (4096) frames
+# and a 64-token prefix, 8 steps against the whole-sequence prefill in fp32
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC = dict(seq=2048, batch=8, grad_accum=2, steps=3, seed=0)
+ENCDEC_DECODE = dict(batch=2, prompt=64, decode=8, seed=1, tol=1e-3)
 
 
 def phase(tag: str, **fields) -> None:
@@ -456,13 +528,17 @@ def check_kernels(dev, gen, failures: list) -> None:
                             f"ssd_scan {dt_name}"))
     results += ssd_stage_checks(dev, gen)
     # flash attention at the train paths' shapes: causal, no masks
-    for label, ((b, s, h, kh, d), dtype, tol) in FLASH_TRAIN.items():
-        q, k, v = (rand(b, s, n, d, dtype=dtype) for n in (h, kh, kh))
+    for label, ((b, sq, skv, h, kh, d), dtype, tol, causal) in \
+            FLASH_TRAIN.items():
+        q = rand(b, sq, h, d, dtype=dtype)
+        k, v = (rand(b, skv, kh, d, dtype=dtype) for _ in range(2))
         dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
         results.append((f"attention train {label} {dtype}",
-                        flash_attention(q, k, v), attention_ref(q, k, v), tol,
+                        flash_attention(q, k, v, causal=causal),
+                        attention_ref(q, k, v, causal=causal), tol,
                         f"attention {dt_name}"))
-    b, s, h, kh, d = FLASH_TRAIN["dense-train"][0]
+        del q, k, v
+    b, s, _, h, kh, d = FLASH_TRAIN["dense-train"][0]
     plan = launch_plan(b, s, s, h, kh, d, sm_count(dev.index))
     opcheck = flash_opcheck(dev, gen, failures)
     torch.cuda.synchronize()
@@ -526,10 +602,13 @@ def ssd_stage_checks(dev, gen) -> list:
 # -- phase 4: serve at full width -----------------------------------------------
 
 
-def serve(dev, failures: list) -> dict:
+def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
+    """``cfg`` served at full width (calibrate, engine, twins), as the
+    ``serve`` phase describes; for a dense model also its chunked prefill
+    against the whole-prompt prefill (an MoE model's is checked apart, by
+    ``moe_serve_check``: its capacity depends on the tokens of a call)."""
     import numpy as np
 
-    from repro_torch.configs.base import get_config
     from repro_torch.core.database import ProfileDB
     from repro_torch.core.estimator import OpTimeEstimator
     from repro_torch.core.hardware import platform_for_device
@@ -537,7 +616,6 @@ def serve(dev, failures: list) -> dict:
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models import build_model
     from repro_torch.netprof.pricing import graph_provenance
-    from repro_torch.serve import paged
     from repro_torch.serve.cost import calibrate_serve
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.policy import ServeConfig
@@ -547,7 +625,6 @@ def serve(dev, failures: list) -> dict:
     from repro_torch.serve.sim import replay_schedule, simulate_serve
     from repro_torch.serve.trace import poisson_trace, prompt_tokens
 
-    cfg = get_config(ARCH)
     platform = platform_for_device(torch.cuda.get_device_name(dev))
     scfg = ServeConfig(**SERVE)
     model = build_model(cfg)
@@ -634,35 +711,10 @@ def serve(dev, failures: list) -> dict:
     if any(p != "measured-db" for fam in prov.values() for p in fam):
         failures.append(f"priced nodes not all DB hits: {prov}")
 
-    # the engine's chunked prefill (paged functions, fresh pool) against the
-    # whole-prompt Model.prefill, for the first request of several chunks
-    req = next(t for t in trace if t.prompt_len > scfg.chunk)
-    prompt = prompt_tokens(req, cfg.vocab_size)
-    pool = paged.init_pool(cfg, scfg, dev)
-    row = torch.arange(1, scfg.max_blocks_per_slot + 1, dtype=torch.int32,
-                       device=dev)
-    with torch.inference_mode():
-        start = 0
-        while start < len(prompt):
-            width = min(scfg.chunk, len(prompt) - start)
-            bucket = scfg.bucket(width)
-            toks = np.zeros((1, bucket), np.int32)
-            toks[0, :width] = prompt[start:start + width]
-            chunked, pool = paged.prefill_chunk(
-                engine.params, pool, torch.as_tensor(toks, device=dev), start,
-                width, row, 0, cfg, scfg)
-            start += width
-        whole, _ = model.prefill(
-            engine.params, torch.as_tensor(prompt[None], device=dev))
-    torch.cuda.synchronize()
-    ref_scale = float(whole.abs().max())
-    logit_err = max_err(chunked, whole)
-    if not (torch.isfinite(chunked).all() and chunked.shape == whole.shape
-            and logit_err <= BF16_TOL * max(1.0, ref_scale)):
-        failures.append(f"chunked prefill logits of request {req.rid} "
-                        f"differ from "
-                        f"Model.prefill by {logit_err:.3g} "
-                        f"(logit scale {ref_scale:.3g})")
+    prefill_check = None
+    if cfg.moe is None:
+        prefill_check = chunked_prefill_check(dev, model, engine.params, trace,
+                                              scfg, failures)
 
     def lat(d):
         return {k: d[k] for k in ("goodput_tok_per_s", "ttft_p50_s",
@@ -682,7 +734,8 @@ def serve(dev, failures: list) -> dict:
               for fam in ("serve_prefill", "serve_decode")
               for e in d.entries(platform.name, fam)} for d in dbs]
 
-    phase("serve", arch=cfg.name, platform=platform.name, serve=SERVE,
+    phase(tag, arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          platform=platform.name, serve=SERVE,
           trace=TRACE, requests=len(finished),
           tokens=eng_lat["total_tokens"], steps=len(engine.step_log),
           forward_calls={"prefill": n_prefill, "decode": n_decode},
@@ -693,11 +746,139 @@ def serve(dev, failures: list) -> dict:
           engine=lat(eng_lat), sim=lat(sim.latency),
           sim_vs_engine_rel_err=report["latency_rel_err"],
           composition_ok=report["composition_ok"], provenance=prov,
-          prefill_logits={"rid": req.rid, "prompt_len": req.prompt_len,
-                          "max_abs_err": logit_err, "logit_scale": ref_scale})
+          prefill_logits=prefill_check)
     return {"launches": launches, "forward_calls": forwards,
             "platform": platform, "trace": trace, "cfg": cfg, "scfg": scfg,
             "params": engine.params}
+
+
+def prefill_in_chunks(dev, params, pool, prompt, table, cfg, scfg):
+    """``prompt`` through ``paged.prefill_chunk`` chunk by chunk into
+    ``pool`` on the blocks of ``table``, as the engine runs it: the last
+    chunk's logits."""
+    import numpy as np
+
+    from repro_torch.serve import paged
+
+    start = 0
+    while start < len(prompt):
+        width = min(scfg.chunk, len(prompt) - start)
+        toks = np.zeros((1, scfg.bucket(width)), np.int32)
+        toks[0, :width] = prompt[start:start + width]
+        logits, pool = paged.prefill_chunk(
+            params, pool, torch.as_tensor(toks, device=dev), start, width,
+            table, 0, cfg, scfg)
+        start += width
+    return logits
+
+
+def chunked_prefill_check(dev, model, params, trace, scfg,
+                          failures: list) -> dict:
+    """The engine's chunked prefill (paged functions, fresh pool) against
+    the whole-prompt ``Model.prefill``, for the first request of several
+    chunks."""
+    from repro_torch.serve import paged
+    from repro_torch.serve.trace import prompt_tokens
+
+    cfg = model.cfg
+    req = next(t for t in trace if t.prompt_len > scfg.chunk)
+    prompt = prompt_tokens(req, cfg.vocab_size)
+    row = torch.arange(1, scfg.max_blocks_per_slot + 1, dtype=torch.int32,
+                       device=dev)
+    with torch.inference_mode():
+        chunked = prefill_in_chunks(dev, params,
+                                    paged.init_pool(cfg, scfg, dev), prompt,
+                                    row, cfg, scfg)
+        whole, _ = model.prefill(params,
+                                 torch.as_tensor(prompt[None], device=dev))
+    torch.cuda.synchronize()
+    ref_scale = float(whole.abs().max())
+    logit_err = max_err(chunked, whole)
+    if not (torch.isfinite(chunked).all() and chunked.shape == whole.shape
+            and logit_err <= BF16_TOL * max(1.0, ref_scale)):
+        failures.append(f"chunked prefill logits of request {req.rid} "
+                        f"differ from "
+                        f"Model.prefill by {logit_err:.3g} "
+                        f"(logit scale {ref_scale:.3g})")
+    return {"rid": req.rid, "prompt_len": req.prompt_len,
+            "max_abs_err": logit_err, "logit_scale": ref_scale}
+
+
+def roomy(cfg):
+    """``cfg`` with an MoE capacity factor of E / k: a group's capacity is
+    the group, so no expert of any dispatch group overflows and a token's
+    output does not depend on the other tokens of its call."""
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+
+
+def moe_serve_check(dev, ctx: dict, failures: list) -> None:
+    """Two of the trace's requests (the first of several chunks and the one
+    after it) through the paged path, prefilled chunk by chunk into a fresh
+    pool and then decoded together, against each request's sequential
+    ``Model.prefill`` / ``decode`` fed the same tokens (its greedy ones),
+    at a capacity no group can overflow: a chunk, a decode batch and a
+    whole prompt route different groups (ROADMAP C1).  Every step's logits
+    within the serve check's limit (bf16 tolerance x the logits' scale)."""
+    from repro_torch.models import build_model
+    from repro_torch.serve import paged
+    from repro_torch.serve.trace import prompt_tokens
+
+    cfg, scfg, params = roomy(ctx["cfg"]), ctx["scfg"], ctx["params"]
+    model = build_model(cfg)
+    trace = ctx["trace"]
+    first = next(i for i, t in enumerate(trace) if t.prompt_len > scfg.chunk)
+    reqs = trace[first:first + 2]
+    n_dec = MOE_SERVE["decode"]
+    mb = scfg.max_blocks_per_slot
+    tables = (torch.arange(2 * mb, dtype=torch.int32, device=dev).view(2, mb)
+              + 1)
+    pool = paged.init_pool(cfg, scfg, dev)
+    errs, scales, want, toks = [], [], [], []
+
+    def compare(got, ref):
+        errs.append(max_err(got, ref))
+        scales.append(float(ref.abs().max()))
+        if not (torch.isfinite(got).all() and got.shape == ref.shape):
+            failures.append(f"moe-serve check: logits {tuple(got.shape)} "
+                            f"not finite or not {tuple(ref.shape)}")
+
+    with torch.inference_mode():
+        for slot, req in enumerate(reqs):
+            prompt = prompt_tokens(req, cfg.vocab_size)
+            # the sequential decode: greedy tokens and each step's logits
+            logits, cache = model.prefill(
+                params, torch.as_tensor(prompt[None], device=dev),
+                len(prompt) + n_dec)
+            seq = [logits]
+            for i in range(n_dec):
+                tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+                logits, cache = model.decode(params, cache, tok,
+                                             len(prompt) + i)
+                seq.append(logits)
+            want.append(seq)
+            compare(prefill_in_chunks(dev, params, pool, prompt,
+                                      tables[slot], cfg, scfg), seq[0])
+        lengths = torch.tensor([t.prompt_len for t in reqs], dtype=torch.int32,
+                               device=dev)
+        for i in range(n_dec):
+            toks = torch.cat([torch.argmax(w[i][:, -1], -1) for w in want])
+            got, pool = paged.decode_batch(
+                params, pool, toks[:, None].to(torch.int32), lengths, tables,
+                cfg, scfg)
+            for slot in range(2):
+                compare(got[slot:slot + 1], want[slot][i + 1])
+            lengths = lengths + 1
+    torch.cuda.synchronize()
+    for j, (e, sc) in enumerate(zip(errs, scales)):
+        if e > BF16_TOL * max(1.0, sc):
+            failures.append(f"moe-serve check {j}: logits differ from the "
+                            f"sequential decode by {e:.3g} (scale {sc:.3g})")
+    phase("moe-serve-check", arch=ctx["cfg"].name,
+          rids=[t.rid for t in reqs], prompt_lens=[t.prompt_len for t in reqs],
+          decode=n_dec, capacity_factor=cfg.moe.capacity_factor,
+          max_abs_err=errs, logit_scale=scales, tol=BF16_TOL)
 
 
 def mid_run_lengths(ctx: dict) -> list:
@@ -758,7 +939,8 @@ def context_effect(dev, ctx: dict, steps: int = 20) -> None:
           wall_ms=runs, mean_ms={k: sum(v) / len(v) for k, v in runs.items()})
 
 
-def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
+def profile_decode(dev, ctx: dict, tag: str = "profile",
+                   steps: int = 5) -> None:
     """Host wall time of one full decode step against the card's busy time
     (torch.profiler's kernel durations), at the mid-run lengths.  The idle
     share is taken over the profiled steps themselves (busy and wall of the
@@ -782,11 +964,11 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
 
     busy_ms = sum(dev_us(e) for e in kernels) / steps / 1e3
     if busy_ms <= 0.0:
-        phase("profile", step="decode", lengths=lengths, wall_ms=wall,
+        phase(tag, step="decode", lengths=lengths, wall_ms=wall,
               wall_ms_profiled=wall_prof, device_busy_ms="not measured")
         return
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
-    phase("profile", step="decode", slots=s, lengths=lengths,
+    phase(tag, step="decode", slots=s, lengths=lengths,
           wall_ms=wall, wall_ms_profiled=wall_prof, device_busy_ms=busy_ms,
           idle_share=1.0 - busy_ms / wall_prof,
           kernel_launches_per_step=sum(e.count for e in kernels) / steps,
@@ -804,7 +986,12 @@ def profile_decode(dev, ctx: dict, steps: int = 5) -> None:
 # -- phase 13: kernel times at the serve and train shapes -----------------------
 
 
-def kernel_table(dev, gen, ctx: dict) -> list:
+def kernel_table(dev, gen, ctx: dict, failures: list,
+                 prefix: str = "") -> list:
+    """RMSNorm and flash attention at a serve path's decode and prefill
+    shapes (``ctx``: the serve phase's, or launches None), each held against
+    its plain version (the kernel checks' bf16 tolerances); rows named
+    ``<kernel>@<prefix><decode|prefill>``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import cost as fa_cost
@@ -844,8 +1031,11 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         x = torch.randn(b, sq, d, generator=gen, device=dev).to(bf16)
         w = torch.randn(d, generator=gen, device=dev)
         w_lib = w.to(bf16)
-        n = b * sq
-        err = max_err(fused_rmsnorm(x, w), rmsnorm_ref(x, w))
+        y, yr = fused_rmsnorm(x, w), rmsnorm_ref(x, w)
+        err = max_err(y, yr)
+        if not close(y, yr, BF16_TOL):
+            failures.append(f"rmsnorm@{prefix}{phase_name}: max abs err "
+                            f"{err:.3g} over tolerance {BF16_TOL}")
         ms = cuda_ms(lambda: fused_rmsnorm(x, w))
         call = call_ms(lambda: fused_rmsnorm(x, w))
         # the same launch without the torch.library op's dispatch: what the
@@ -856,7 +1046,7 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         ops_, nbytes = rms_cost(x, w, 1e-5, x.dtype)
         bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
         out.append({
-            "name": f"rmsnorm@{phase_name}", "route": "cuda",
+            "name": f"rmsnorm@{prefix}{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
             "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
             "launches": launches("rmsnorm"),
@@ -874,7 +1064,12 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         qo = torch.tensor(offs, dtype=torch.int32, device=dev)
         kl = torch.full_like(qo, view)
         kw = dict(causal=True, q_offset=qo, kv_len=kl)
-        err = max_err(flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw))
+        o, ref = flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
+        err = max_err(o, ref)
+        if not close(o, ref, ATTN_BF16_TOL):
+            failures.append(f"flash_attention@{prefix}{phase_name}: max abs "
+                            f"err {err:.3g} over tolerance {ATTN_BF16_TOL}")
+        del o, ref
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
         call = call_ms(lambda: flash_attention(q, k, v, **kw))
         plain = cuda_ms(lambda: attention_ref(q, k, v, **kw))
@@ -888,7 +1083,7 @@ def kernel_table(dev, gen, ctx: dict) -> list:
         bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
         plan = launch_plan(b, sq, view, h, kh, hd, sm_count(dev.index))
         out.append({
-            "name": f"flash_attention@{phase_name}", "route": "cuda",
+            "name": f"flash_attention@{prefix}{phase_name}", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:127",
@@ -951,9 +1146,11 @@ def bound_ms(chip, nbytes: float, ops: float, ops_rate: float):
     return 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
-    """The kernels at the train path's shapes: the SSD scan and RMSNorm of
-    one microbatch of mamba2-2.7b; launches from the train run.  Each
+def train_kernel_table(dev, gen, ctx: dict, failures: list,
+                       tag: str = "train") -> list:
+    """The kernels at a train path's shapes: the SSD scan and RMSNorm of one
+    microbatch of ``ctx["cfg"]`` (mamba2-2.7b for ``train``, the jamba
+    variant for ``jamba-train``); launches from that train run.  Each
     output is held against its plain version with the kernel checks'
     bf16 tolerance."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -962,7 +1159,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.models.mamba import mamba_dims
 
-    cfg, chip = ctx["cfg"], ctx["platform"].chip
+    cfg, chip, run = ctx["cfg"], ctx["platform"].chip, ctx["run"]
     counts = ctx["launches"]
 
     def launches(name: str):
@@ -970,10 +1167,10 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         return None if counts is None else counts[name]
 
     def per_step(name: str):
-        return None if counts is None else counts[name] / TRAIN["steps"]
+        return None if counts is None else counts[name] / run["steps"]
 
     m, _, nh = mamba_dims(cfg)
-    b, s, q = TRAIN["batch"] // TRAIN["grad_accum"], TRAIN["seq"], m.chunk_size
+    b, s, q = run["batch"] // run["grad_accum"], run["seq"], m.chunk_size
     out = []
 
     ins = ssd_inputs(gen, dev, b, s, nh, m.head_dim, m.d_state, True,
@@ -989,7 +1186,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     yr, sr = ssd_scan_ref(*(t.double() for t in ins), q)
     err = max(max_err(y, yr), max_err(st, sr))
     if not (close(y, yr, SSD_BF16_TOL) and close(st, sr, SSD_BF16_TOL)):
-        failures.append(f"ssd_scan@train: max abs err {err:.3g} over "
+        failures.append(f"ssd_scan@{tag}: max abs err {err:.3g} over "
                         f"tolerance {SSD_BF16_TOL}")
     del yr, sr
     ops_, nbytes = ssd_cost(*ins, q, f32)
@@ -1011,7 +1208,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     for name, (grid, smem) in want.items():
         got = (lib[name]["grid"], lib[name]["smem_dynamic"])
         if got != (grid, smem):
-            failures.append(f"ssd_scan@train {name}: the library launches "
+            failures.append(f"ssd_scan@{tag} {name}: the library launches "
                             f"{got}, launch_plan says {(grid, smem)}")
     build = {f["function"]: f for f in ctx.get("ptxas", {}).get("ssd_scan", [])}
     kernels = {}
@@ -1029,7 +1226,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
                          "smem_dynamic": lib[name]["smem_dynamic"],
                          "blocks_per_sm": lib[name]["blocks_per_sm"]}
     out.append({
-        "name": "ssd_scan@train", "route": "cuda",
+        "name": f"ssd_scan@{tag}", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:96",
         "launches": launches("ssd_scan"),
@@ -1047,7 +1244,7 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "scratch_bytes": sum(t.numel() * t.element_size() for t in scratch)})
     del scratch
 
-    out.append(rmsnorm_row(dev, gen, chip, "rmsnorm@train", (b, s, cfg.d_model),
+    out.append(rmsnorm_row(dev, gen, chip, f"rmsnorm@{tag}", (b, s, cfg.d_model),
                            cfg.norm_eps, launches("rmsnorm"),
                            per_step("rmsnorm"), failures))
     return out
@@ -1091,9 +1288,10 @@ def rmsnorm_row(dev, gen, chip, name: str, shape: tuple, eps: float,
 
 def flash_train_row(dev, gen, chip, name: str, launches, per_step,
                     failures: list) -> dict:
-    """Flash attention at a train path's shape (``FLASH_TRAIN``): causal,
-    no masks, as ``layers.attention`` calls it; held against its plain
-    version, timed beside SDPA (causal, GQA)."""
+    """Flash attention at a path's shape (``FLASH_TRAIN``), no masks, as
+    ``layers.attention`` calls it (causal, or non-causal for the encoder and
+    the cross-attention); held against its plain version, timed beside SDPA
+    (``is_causal`` as the row, GQA)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import cost as fa_cost
@@ -1102,16 +1300,18 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
     )
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    (b, s, h, kh, d), dtype, tol = FLASH_TRAIN[name]
-    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dtype)
-               for n in (h, kh, kh))
-    o, ref = flash_attention(q, k, v), attention_ref(q, k, v)
+    (b, sq, skv, h, kh, d), dtype, tol, causal = FLASH_TRAIN[name]
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    o = flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q, k, v, causal=causal)
     err = max_err(o, ref)
     if not close(o, ref, tol):
         failures.append(f"flash_attention@{name}: max abs err {err:.3g} "
                         f"over tolerance {tol}")
     del o, ref
-    ops_, nbytes = fa_cost(q, k, v, True)
+    ops_, nbytes = fa_cost(q, k, v, causal)
     bf16 = dtype == torch.bfloat16
     bms, by = bound_ms(chip, nbytes, ops_,
                        chip.peak_flops if bf16 else FP32_FLOPS)
@@ -1122,19 +1322,21 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:127",
         "launches": launches, "launches_per_step": per_step,
-        "shape": f"q ({b}, {s}, {h}, {d}) vs k/v ({b}, {s}, {kh}, {d}) "
-                 f"{'bf16' if bf16 else 'fp32'}, causal, no masks",
+        "shape": f"q ({b}, {sq}, {h}, {d}) vs k/v ({b}, {skv}, {kh}, {d}) "
+                 f"{'bf16' if bf16 else 'fp32'}, "
+                 f"{'causal' if causal else 'non-causal'}, no masks",
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: flash_attention(q, k, v)),
-        "call_ms": call_ms(lambda: flash_attention(q, k, v)),
-        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v), iters=5),
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "call_ms": call_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
+                            iters=5),
         "bound_ms": bms, "bound_by": by,
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        "library": "torch.nn.functional.scaled_dot_product_attention "
-                   "(is_causal, enable_gqa)"}
+            qt, kt, vt, is_causal=causal, enable_gqa=True)),
+        "library": f"torch.nn.functional.scaled_dot_product_attention "
+                   f"(is_causal={causal}, enable_gqa)"}
     if bf16:
-        plan = launch_plan(b, s, s, h, kh, d, sm_count(dev.index))
+        plan = launch_plan(b, sq, skv, h, kh, d, sm_count(dev.index))
         row["plan"] = {"keys_mode": plan.split_keys,
                        "row_tiles": plan.row_tiles, "splits": plan.splits,
                        "grid": [plan.row_tiles, b * kh, plan.splits],
@@ -1149,17 +1351,46 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
 
 def train_launches(cfg, grad_accum: int) -> dict:
     """Kernel launches of one train step: per microbatch, every layer's
-    mixer (SSD scan or flash attention) and block norms in the forward
+    mixers (SSD scan or flash attention) and block norms in the forward
     pass, again in the backward pass where the layer is recomputed (remat),
-    and the final norm once.  The gradients of all three ops are the plain
+    and the final norms once (the decoder's, and the encoder's in the
+    encoder-decoder).  The gradients of all three ops are the plain
     versions' VJPs and launch no kernel."""
+    from repro_torch.models.hybrid import _n_superblocks, _sublayer_kinds
+
     passes = 1 if cfg.remat_policy == "none" else 2
-    mixers = passes * cfg.num_layers * grad_accum
-    ssm = cfg.family == "ssm"
-    norms = 1 if ssm else 2     # block norms a layer
-    return {"ssd_scan": mixers if ssm else 0,
-            "flash_attention": 0 if ssm else mixers,
-            "rmsnorm": (passes * norms * cfg.num_layers + 1) * grad_accum}
+    if cfg.family == "audio":
+        # encoder: self-attention, 2 norms; decoder: self- and cross-
+        # attention, 3 norms
+        enc, dec = cfg.encoder_layers, cfg.num_layers
+        attn, ssd, norms, finals = enc + 2 * dec, 0, 2 * enc + 3 * dec, 2
+    elif cfg.family == "hybrid":
+        kinds, n_sb = _sublayer_kinds(cfg), _n_superblocks(cfg)
+        attn = n_sb * sum(1 for m, _ in kinds if m == "attn")
+        ssd = n_sb * sum(1 for m, _ in kinds if m == "mamba")
+        norms = n_sb * sum(1 + (f != "none") for _, f in kinds)
+        finals = 1
+    elif cfg.family == "ssm":
+        attn, ssd, norms, finals = 0, cfg.num_layers, cfg.num_layers, 1
+    else:
+        attn, ssd, norms, finals = cfg.num_layers, 0, 2 * cfg.num_layers, 1
+    return {"ssd_scan": passes * ssd * grad_accum,
+            "flash_attention": passes * attn * grad_accum,
+            "rmsnorm": (passes * norms + finals) * grad_accum}
+
+
+def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
+    """The train run's batch of ``step`` on the card (its first ``rows``
+    rows), as ``launch.train`` draws it: frames as long as the tokens for
+    the encoder-decoder."""
+    from repro_torch.data import SyntheticTokens
+
+    src = SyntheticTokens(
+        cfg.vocab_size, run["seq"], run["batch"], seed=run["seed"],
+        frontend_dim=cfg.frontend_dim if cfg.family == "audio" else 0,
+        frames_len=run["seq"])
+    return {k: torch.as_tensor(v[:rows], device=dev)
+            for k, v in src.batch_at(step).items()}
 
 
 def kernel_counters() -> dict:
@@ -1231,7 +1462,6 @@ def profile_train_step(dev, ctx: dict, tag: str) -> None:
     printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.data import SyntheticTokens
     from repro_torch.models import build_model
     from repro_torch.optim import cosine_with_warmup, make_optimizer
     from repro_torch.train.step import make_train_step
@@ -1240,10 +1470,7 @@ def profile_train_step(dev, ctx: dict, tag: str) -> None:
     step = make_train_step(build_model(cfg), make_optimizer(cfg.optimizer),
                            cosine_with_warmup(3e-4, 20, 21),
                            grad_accum=run["grad_accum"])
-    src = SyntheticTokens(cfg.vocab_size, run["seq"], run["batch"],
-                          seed=run["seed"])
-    batch = {k: torch.as_tensor(v, device=dev)
-             for k, v in src.batch_at(run["steps"]).items()}
+    batch = synthetic_batch(cfg, run, run["steps"], dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1282,19 +1509,20 @@ def profile_train_step(dev, ctx: dict, tag: str) -> None:
 
 
 def decode_against_prefill(model, params, tokens, prompt: int, decode: int,
-                           label: str, failures: list) -> tuple:
-    """``Model.prefill`` of ``prompt`` tokens, then ``decode`` steps, each
-    against the whole-sequence prefill at the same position: the max abs
-    errors and the logits' scales."""
+                           label: str, failures: list, **inputs) -> tuple:
+    """``Model.prefill`` of ``prompt`` tokens (and ``inputs``, the encoder-
+    decoder's frames), then ``decode`` steps, each against the whole-
+    sequence prefill at the same position: the max abs errors and the
+    logits' scales."""
     errs, scales = [], []
     with torch.inference_mode():
         logits, cache = model.prefill(params, tokens[:, :prompt],
-                                      prompt + decode)
+                                      prompt + decode, **inputs)
         for i in range(decode):
             pos = prompt + i
             logits, cache = model.decode(params, cache,
                                          tokens[:, pos:pos + 1], pos)
-            whole, _ = model.prefill(params, tokens[:, :pos + 1])
+            whole, _ = model.prefill(params, tokens[:, :pos + 1], **inputs)
             if not (torch.isfinite(logits).all()
                     and logits.shape == whole.shape):
                 failures.append(f"{label} decode step {i + 1}: logits "
@@ -1316,8 +1544,6 @@ def check_decode_errors(errs, scales, tol: float, label: str,
 
 
 def ssm_phase(dev, ctx: dict, failures: list) -> None:
-    import dataclasses
-
     from repro_torch.models import build_model
 
     cfg, params = ctx["cfg"], ctx["state"].params
@@ -1354,14 +1580,13 @@ def ssm_phase(dev, ctx: dict, failures: list) -> None:
 # -- phases 10-11: dense check, MoE -----------------------------------------
 
 
-def dense_check(dev, ctx: dict, failures: list) -> None:
-    """One microbatch of the dense run's model (its trained parameters)
+def attention_check(dev, ctx: dict, failures: list, tag: str) -> None:
+    """One microbatch of a train run's model (its trained parameters)
     through the kernel, as the run takes it, against the same microbatch
     with attention swapped for ``attention_ref`` where ``models/layers.py``
     calls the op: the loss and the global grad norm."""
     from unittest import mock
 
-    from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import build_model
@@ -1371,10 +1596,7 @@ def dense_check(dev, ctx: dict, failures: list) -> None:
     cfg, run, params = ctx["cfg"], ctx["run"], ctx["state"].params
     model = build_model(cfg)
     mb = run["batch"] // run["grad_accum"]
-    src = SyntheticTokens(cfg.vocab_size, run["seq"], run["batch"],
-                          seed=run["seed"])
-    batch = {k: torch.as_tensor(v[:mb], device=dev)
-             for k, v in src.batch_at(0).items()}
+    batch = synthetic_batch(cfg, run, 0, dev, rows=mb)
 
     def loss_and_grad_norm():
         flat = leaves(params)
@@ -1396,16 +1618,16 @@ def dense_check(dev, ctx: dict, failures: list) -> None:
     n_plain = fa_ops.LAUNCHES.count - n_kernel
     want = train_launches(cfg, 1)["flash_attention"]
     if n_kernel != want or n_plain != 0:
-        failures.append(f"dense-check: {n_kernel} kernel launches through "
+        failures.append(f"{tag}: {n_kernel} kernel launches through "
                         f"the kernel (expected {want}), {n_plain} with "
                         "attention_ref (expected 0)")
     rel = [abs(a - b) / abs(b) for a, b in zip(kern, ref)]
     if not all(math.isfinite(x) for x in kern + ref) or max(rel) > \
             DENSE_CHECK_TOL:
-        failures.append(f"dense-check: loss and grad norm {kern} through "
+        failures.append(f"{tag}: loss and grad norm {kern} through "
                         f"the kernel, {ref} through attention_ref (relative "
                         f"{rel}, tolerance {DENSE_CHECK_TOL})")
-    phase("dense-check", arch=cfg.name, microbatch=[mb, run["seq"]],
+    phase(tag, arch=cfg.name, microbatch=[mb, run["seq"]],
           kernel={"loss": kern[0], "grad_norm": kern[1]},
           attention_ref={"loss": ref[0], "grad_norm": ref[1]},
           rel_err={"loss": rel[0], "grad_norm": rel[1]},
@@ -1420,8 +1642,6 @@ def moe_phase(dev, failures: list) -> dict:
     a row) and a whole-sequence prefill (groups of 32) may keep different
     tokens where the capacity binds: the check runs at a capacity factor of
     E / k, where no group can overflow an expert (C >= group)."""
-    import dataclasses
-
     from repro_torch.launch.sim_accuracy import smoke_config
     from repro_torch.models import build_model
 
@@ -1430,10 +1650,7 @@ def moe_phase(dev, failures: list) -> dict:
     auxes = [r["aux"] for r in ctx["steps"]]
     if not all(math.isfinite(a) and a > 0 for a in auxes):
         failures.append(f"moe: aux losses {auxes}, expected finite and > 0")
-    moe = cfg.moe
-    roomy = dataclasses.replace(
-        cfg, moe=dataclasses.replace(
-            moe, capacity_factor=moe.num_experts / moe.top_k))
+    moe, check = cfg.moe, roomy(cfg)
     d = MOE_DECODE
     gen = torch.Generator(device=dev).manual_seed(d["seed"])
     tokens = torch.randint(1, cfg.vocab_size,
@@ -1447,7 +1664,7 @@ def moe_phase(dev, failures: list) -> dict:
     for c in counters.values():
         c.reset()
     errs, scales = decode_against_prefill(
-        build_model(roomy), ctx["state"].params, tokens, d["prompt"],
+        build_model(check), ctx["state"].params, tokens, d["prompt"],
         d["decode"], "moe", failures)
     launches = {k: c.count for k, c in counters.items()}
     if launches != want:
@@ -1455,10 +1672,158 @@ def moe_phase(dev, failures: list) -> dict:
     check_decode_errors(errs, scales, d["tol"], "moe", failures)
     phase("moe", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
           experts=moe.num_experts, top_k=moe.top_k, aux=auxes,
-          decode={**d, "capacity_factor": roomy.moe.capacity_factor,
+          decode={**d, "capacity_factor": check.moe.capacity_factor,
                   "max_abs_err": errs, "logit_scale": scales,
                   "launches": launches})
     return ctx
+
+
+# -- phases 14-18: MoE serving, the jamba superblock, the encoder-decoder -------
+
+
+def moe_serve_config():
+    """qwen3-moe-235b-a22b at its published widths, depth cut to
+    ``MOE_SERVE["layers"]``."""
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(MOE_SERVE["arch"]),
+                               num_layers=MOE_SERVE["layers"])
+
+
+def jamba_config():
+    """One whole period of jamba-1.5-large-398b with d_model cut to 1024 and
+    the dense and expert FFNs to 3 x 1024 (the published ratio); every
+    head, state and expert count as published."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(JAMBA_ARCH)
+    return dataclasses.replace(
+        cfg, num_layers=cfg.attn_every, d_model=1024, d_ff=3 * 1024,
+        moe=dataclasses.replace(cfg.moe, d_ff_expert=3 * 1024))
+
+
+def decode_launches(cfg, prefills: int, steps: int) -> dict:
+    """Kernel launches of ``prefills`` whole-sequence prefills and ``steps``
+    decode steps: every attention (a decode step's too) is one flash launch
+    and every norm one RMSNorm launch, as in a forward pass without remat;
+    a prefill runs an SSD scan a mamba layer, a decode step none (the O(1)
+    state update); an encoder-decoder's decode step runs the decoder
+    alone."""
+    one = train_launches(dataclasses.replace(cfg, remat_policy="none"), 1)
+    step = dict(one, ssd_scan=0)
+    if cfg.family == "audio":
+        step.update(flash_attention=2 * cfg.num_layers,
+                    rmsnorm=3 * cfg.num_layers + 1)
+    return {k: prefills * one[k] + steps * step[k] for k in one}
+
+
+def jamba_phase(dev, failures: list) -> dict:
+    """``JAMBA``'s train run of the jamba variant (launches asserted a
+    step, finite losses, aux > 0), then its prefill and decode against the
+    whole-sequence prefill on the trained parameters, in fp32 compute at a
+    capacity no group can overflow."""
+    from repro_torch.models import build_model
+
+    cfg = jamba_config()
+    ctx = train_phase(dev, failures, cfg, JAMBA, "jamba-train")
+    auxes = [r["aux"] for r in ctx["steps"]]
+    if not all(math.isfinite(a) and a > 0 for a in auxes):
+        failures.append(f"jamba: aux losses {auxes}, expected finite and > 0")
+    ctx["state"] = ctx["state"]._replace(opt_state=None)
+    d = JAMBA_DECODE
+    gen = torch.Generator(device=dev).manual_seed(d["seed"])
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (d["batch"], d["prompt"] + d["decode"]),
+                           generator=gen, device=dev)
+    check = roomy(dataclasses.replace(cfg, compute_dtype="float32"))
+    want = decode_launches(cfg, 1 + d["decode"], d["decode"])
+    counters = kernel_counters()
+    # this path's run: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    errs, scales = decode_against_prefill(
+        build_model(check), ctx["state"].params, tokens, d["prompt"],
+        d["decode"], "jamba", failures)
+    launches = {k: c.count for k, c in counters.items()}
+    if launches != want:
+        failures.append(f"jamba decode: launches {launches}, expected {want}")
+    check_decode_errors(errs, scales, d["tol"], "jamba", failures)
+    phase("jamba", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          aux=auxes, decode={**d, "compute": "float32",
+                             "capacity_factor": check.moe.capacity_factor,
+                             "max_abs_err": errs, "logit_scale": scales,
+                             "launches": launches})
+    return ctx
+
+
+def encdec_decode(dev, ctx: dict, failures: list) -> dict:
+    """The trained seamless-m4t's prefill of ``source_len`` frames and a
+    ``prompt``-token prefix, then ``decode`` steps, each against the
+    whole-sequence prefill, in fp32 compute (its parameters are fp32)."""
+    from repro_torch.models import build_model
+
+    cfg, d = ctx["cfg"], ENCDEC_DECODE
+    gen = torch.Generator(device=dev).manual_seed(d["seed"])
+    tokens = torch.randint(1, cfg.vocab_size,
+                           (d["batch"], d["prompt"] + d["decode"]),
+                           generator=gen, device=dev)
+    frames = torch.randn(d["batch"], cfg.source_len, cfg.frontend_dim,
+                         generator=gen, device=dev)
+    check = dataclasses.replace(cfg, compute_dtype="float32")
+    want = decode_launches(cfg, 1 + d["decode"], d["decode"])
+    counters = kernel_counters()
+    # this path's run: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    errs, scales = decode_against_prefill(
+        build_model(check), ctx["state"].params, tokens, d["prompt"],
+        d["decode"], "encdec", failures, frames=frames)
+    launches = {k: c.count for k, c in counters.items()}
+    if launches != want:
+        failures.append(f"encdec decode: launches {launches}, expected "
+                        f"{want}")
+    check_decode_errors(errs, scales, d["tol"], "encdec", failures)
+    phase("encdec-decode", arch=cfg.name, source_len=cfg.source_len, **d,
+          compute="float32", max_abs_err=errs, logit_scale=scales,
+          launches=launches)
+    return launches
+
+
+def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
+    """The kernels at the jamba and seamless paths' shapes: the SSD scan,
+    RMSNorm and flash attention of one jamba microbatch, RMSNorm and the
+    three attentions of one seamless microbatch and a decode step's cross-
+    attention; launches from those paths' runs (None where no path was
+    driven; a flash row gives all the flash launches of its run)."""
+    from repro_torch.configs.base import get_config
+
+    chip = ctx["platform"].chip
+
+    def counts(run: str, kernel: str, steps: int):
+        c = ctx[run]
+        return (None, None) if c is None else (c[kernel], c[kernel] / steps)
+
+    jcfg, ecfg = jamba_config(), get_config(ENCDEC_ARCH)
+    rows = train_kernel_table(dev, gen, {
+        "cfg": jcfg, "run": JAMBA, "platform": ctx["platform"],
+        "launches": ctx["jamba"], "ptxas": ctx["ptxas"]}, failures,
+        "jamba-train")
+    rows.append(flash_train_row(
+        dev, gen, chip, "jamba-train",
+        *counts("jamba", "flash_attention", JAMBA["steps"]), failures))
+    b = ENCDEC["batch"] // ENCDEC["grad_accum"]
+    rows.append(rmsnorm_row(
+        dev, gen, chip, "rmsnorm@encdec-train",
+        (b, ENCDEC["seq"], ecfg.d_model), ecfg.norm_eps,
+        *counts("encdec", "rmsnorm", ENCDEC["steps"]), failures))
+    for name in ("encdec-train-encoder-cross", "encdec-train-decoder-self"):
+        rows.append(flash_train_row(
+            dev, gen, chip, name,
+            *counts("encdec", "flash_attention", ENCDEC["steps"]), failures))
+    rows.append(flash_train_row(
+        dev, gen, chip, "encdec-decode-cross",
+        *counts("encdec_decode", "flash_attention", 1), failures))
+    return rows
 
 
 # -- phases 8 and 12: the simulator's train-step loop ---------------------------
@@ -1526,15 +1891,19 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
                           prompt_lens=TRACE["prompt_lens"],
                           max_new_tokens=TRACE["max_new_tokens"],
                           seed=TRACE["seed"])
-    table = kernel_table(dev, gen, {
-        "cfg": get_config(ARCH), "scfg": ServeConfig(**SERVE),
-        "platform": platform, "trace": trace, "launches": None,
-        "forward_calls": None})
+    ctx = {"scfg": ServeConfig(**SERVE), "platform": platform,
+           "trace": trace, "launches": None, "forward_calls": None}
+    table = kernel_table(dev, gen, dict(ctx, cfg=get_config(ARCH)), failures)
+    table += kernel_table(dev, gen, dict(ctx, cfg=moe_serve_config()),
+                          failures, "moe-serve-")
     table += train_kernel_table(dev, gen, {
-        "cfg": get_config(TRAIN_ARCH), "platform": platform,
+        "cfg": get_config(TRAIN_ARCH), "run": TRAIN, "platform": platform,
         "launches": None, "ptxas": ptxas}, failures)
-    return table + dense_kernel_table(dev, gen, {
+    table += dense_kernel_table(dev, gen, {
         "platform": platform, "dense": None, "moe": None}, failures)
+    return table + new_path_kernel_table(dev, gen, {
+        "platform": platform, "ptxas": ptxas, "jamba": None, "encdec": None,
+        "encdec_decode": None}, failures)
 
 
 def main() -> int:
@@ -1583,15 +1952,15 @@ def main() -> int:
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
-    ctx = serve(dev, failures)
-    profile_decode(dev, ctx)
-    context_effect(dev, ctx)
-    table = kernel_table(dev, gen, ctx)
-    del ctx
-    torch.cuda.empty_cache()
-
     from repro_torch.configs.base import get_config
     from repro_torch.launch.sim_accuracy import smoke_config
+
+    ctx = serve(dev, failures, get_config(ARCH))
+    profile_decode(dev, ctx)
+    context_effect(dev, ctx)
+    table = kernel_table(dev, gen, ctx, failures)
+    del ctx
+    torch.cuda.empty_cache()
 
     tctx = train_phase(dev, failures, get_config(TRAIN_ARCH), TRAIN, "train")
     profile_train_step(dev, tctx, "train-profile")
@@ -1607,7 +1976,7 @@ def main() -> int:
     dctx = train_phase(dev, failures, get_config(DENSE_ARCH), DENSE,
                        "dense-train")
     profile_train_step(dev, dctx, "dense-train-profile")
-    dense_check(dev, dctx, failures)
+    attention_check(dev, dctx, failures, "dense-check")
     dense_cfg, dense_launches = dctx["cfg"], dctx["launches"]
     del dctx
     torch.cuda.empty_cache()
@@ -1620,6 +1989,31 @@ def main() -> int:
                    DENSE["batch"] // DENSE["grad_accum"], failures)
     simtrain_phase(dev, smoke_config(MOE_ARCH), MOE["seq"], MOE["batch"],
                    failures)
+
+    # this slice: MoE serving at the published widths, the jamba superblock,
+    # the encoder-decoder at full width
+    ctx = serve(dev, failures, moe_serve_config(), "moe-serve")
+    profile_decode(dev, ctx, "moe-serve-profile")
+    moe_serve_check(dev, ctx, failures)
+    table += kernel_table(dev, gen, ctx, failures, "moe-serve-")
+    del ctx
+    torch.cuda.empty_cache()
+    jamba_launches = jamba_phase(dev, failures)["launches"]
+    torch.cuda.empty_cache()
+    ectx = train_phase(dev, failures, get_config(ENCDEC_ARCH), ENCDEC,
+                       "encdec-train")
+    profile_train_step(dev, ectx, "encdec-train-profile")
+    ectx["state"] = ectx["state"]._replace(opt_state=None)
+    torch.cuda.empty_cache()
+    attention_check(dev, ectx, failures, "encdec-check")
+    encdec_decode_launches = encdec_decode(dev, ectx, failures)
+    encdec_launches = ectx["launches"]
+    del ectx
+    torch.cuda.empty_cache()
+    table += new_path_kernel_table(dev, gen, {
+        "platform": platform, "ptxas": ptxas, "jamba": jamba_launches,
+        "encdec": encdec_launches, "encdec_decode": encdec_decode_launches},
+        failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -15,8 +15,13 @@ architecture, on the port's device (``cuda`` unless asked for the CPU):
      the real contractions, and the real kernel ops, which the JAX package's
      graph does not have;
   5. simulate again;
-  6. measure the real step's wall time, and the kernel launches it makes,
-     and report the error of both passes.
+  6. measure the real step: after a warm-up step, ``steps`` steps (at least
+     5) each timed on its own up to a host sync (and between CUDA events on
+     the card); the row's ``measured_s`` is their median, beside their
+     minimum and maximum, and both errors are taken against the median.
+     One more step under ``torch.profiler`` gives the card's busy time
+     (``busy_s``: the union of its kernels' intervals; ``None`` on the
+     CPU).  The kernel launches a step are counted over the timed steps.
 
 The JAX benchmark profiles before it compiles the step; the port traces
 first, because the step's sizes decide how far the grids reach.  The rows
@@ -38,6 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import time
 
 import torch
@@ -51,6 +57,11 @@ MATMUL_SIZES = (64, 128, 256, 512, 1024, 2048)
 VECTOR_SIZES = tuple(2 ** p for p in range(12, 25, 2))
 # dot and kernel signatures the new-op profiler times (the JAX loop's 24)
 REFINE_TOP = 24
+# the fewest timed steps a row's median is taken over
+MIN_STEPS = 5
+# the train step's named ranges, which the profiler also puts on the device
+# timeline as spans over kernels
+RANGE_PREFIXES = ("train_step.", "repro_torch::")
 
 
 def smoke_config(arch: str):
@@ -108,13 +119,33 @@ def profile_grids(graph, itemsize: int) -> tuple[list[int], list[int]]:
     return mm, vec
 
 
+def busy_seconds(events) -> float:
+    """The union of the device intervals of ``events`` (the profiler's
+    ``FunctionEvent``s: kernels, copies and fills on the card; named ranges
+    and host events left out), in seconds: the time the card was busy."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(RANGE_PREFIXES))
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e6
+
+
 def run(cfg, *, seq: int, batch: int, steps: int = 12,
         profile_repeats: int = 5, device="cuda", log_fn=print) -> dict:
     """One Table-2 row for ``cfg``; returns it as a dict.
 
     The profiles are taken in fp32, as in the JAX benchmark, over the grids
     of :func:`profile_grids`; reductions and memory ops take every vector
-    size but the largest, as there."""
+    size but the largest, as there.  ``steps`` (at least ``MIN_STEPS``)
+    real steps are timed, one by one."""
     from repro_torch.core.database import ProfileDB
     from repro_torch.core.estimator import OpTimeEstimator
     from repro_torch.core.fx_graph import KERNEL_COSTS, step_summary
@@ -130,6 +161,9 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     from repro_torch.optim import adamw, cosine_with_warmup
     from repro_torch.train.step import init_state, make_train_step
 
+    if steps < MIN_STEPS:
+        raise ValueError(f"steps={steps}: the measured median needs at "
+                         f"least {MIN_STEPS} timed steps")
     dev = resolve_device(device)
     seconds = {}
     model = build_model(cfg)
@@ -195,12 +229,30 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
                 "flash_attention": fa_ops.LAUNCHES}
     before = {k: c.count for k, c in counters.items()}
-    t1 = time.perf_counter()
+    wall, events = [], []
     for _ in range(steps):
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t1 = time.perf_counter()
         state, metrics = step(state, batch_t)
-    float(metrics["loss"])                   # host sync: every step is done
-    measured = (time.perf_counter() - t1) / steps
+        float(metrics["loss"])               # host sync: the step is done
+        wall.append(time.perf_counter() - t1)
+        if dev.type == "cuda":
+            ev[1].record()
+            ev[1].synchronize()
+            events.append(ev[0].elapsed_time(ev[1]) / 1e3)
     launches = {k: (c.count - before[k]) / steps for k, c in counters.items()}
+    measured = float(statistics.median(wall))
+    busy = None
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, metrics = step(state, batch_t)
+            float(metrics["loss"])
+        busy = busy_seconds(prof.events())
     seconds["measure"] = time.perf_counter() - t0
     del state
 
@@ -210,7 +262,10 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
         "name": f"table2_{ROWS.get(cfg.name, cfg.name)}",
         "arch": cfg.name, "platform": platform.name,
         "seq": seq, "batch": batch,
-        "measured_s": measured, "sim_offline_s": sim1,
+        "measured_s": measured, "measured_min_s": min(wall),
+        "measured_max_s": max(wall), "measured_steps_s": wall,
+        "measured_event_s": events or None, "busy_s": busy,
+        "sim_offline_s": sim1,
         "sim_refined_s": sim2, "err_offline": err1, "err_refined": err2,
         "provenance_offline": stats1, "provenance_refined": stats2,
         "sim_offline_s_by_kind": res1.time_by_kind,

@@ -15,9 +15,9 @@ events around the step.
 
 Not ported yet, and refused with the ROADMAP.md item that brings them:
 ``--pp`` and ``--compression`` (distributed), ``--ckpt-dir`` (checkpointing)
-and ``--obs`` (telemetry replay).  The ``dense``, ``moe``, ``vlm`` and
-``ssm`` families train; ``hybrid`` (the jamba superblock) and ``audio``
-(encdec) raise with their ROADMAP.md items.
+and ``--obs`` (telemetry replay).  Every family trains: ``dense``, ``moe``,
+``vlm``, ``ssm``, ``hybrid`` (the jamba superblock) and ``audio`` (the
+encoder-decoder, whose batch carries frames as long as the sequence).
 """
 from __future__ import annotations
 
@@ -127,8 +127,8 @@ def train(
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2-2.7b",
-                    help="a dense, moe, vlm or ssm architecture (the "
-                         "families that train)")
+                    help="an architecture of configs/ (every family "
+                         "trains)")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config of the same family (CPU-sized)")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,16 +1,23 @@
-"""Model facade over the ported families (dense, moe, vlm and ssm, so far).
+"""Model facade over every family of the JAX package: dense, moe and vlm
+(``transformer``), ssm and hybrid (``hybrid``), audio (``encdec``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions on tensors::
 
     params = model.init(torch.Generator(device).manual_seed(0))
     loss, metrics = model.loss(params, batch)       # metrics: ce, aux
-    logits, cache = model.prefill(params, tokens)   # (B, S) tokens [+ patches]
+    logits, cache = model.prefill(params, tokens)   # (B, S) tokens
+                                                    # [+ patches or frames]
     logits, cache = model.decode(params, cache, token, cache_len)
 
-:func:`load_jax_params` takes the JAX package's parameter tree (as numpy
-arrays, same keys and shapes, ``blocks`` stacked on a leading layer axis),
-so both packages compute the same thing in the tests.
+The JAX package's ``prefill(params, batch)`` reads ``batch["patches"]``
+(vlm) and ``batch["frames"]`` (audio); here they are the keyword arguments
+``patches=`` and ``frames=``.
+
+:func:`load_jax_params` takes the JAX package's parameter tree of any family
+(as numpy arrays, same keys and shapes, blocks, superblocks or the encoder
+and decoder stacked on a leading layer axis), so both packages compute the
+same thing in the tests.
 :func:`compute_params` casts the block weights to the compute dtype once,
 which is what the JAX code does at every use (identical numbers).
 """
@@ -24,16 +31,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.tree import tree_map
 
-# JAX-package families still to port, and the ROADMAP.md item that ports them
-_WAITING = {
-    "hybrid": "the jamba superblock",
-    "audio": "encdec",
-}
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
-            "ssm": hybrid}
+            "ssm": hybrid, "hybrid": hybrid, "audio": encdec}
 
 
 @dataclass(frozen=True)
@@ -41,20 +43,18 @@ class Model:
     cfg: ArchConfig
     init: Callable  # generator -> params on generator.device
     loss: Callable  # (params, batch) -> (loss, metrics)
-    # (params, tokens, max_len=None, patches=None) -> (logits, cache)
+    # (params, tokens, max_len=None, patches=None, frames=None)
+    #   -> (logits, cache)
     prefill: Callable
     decode: Callable  # (params, cache, token, cache_len) -> (logits, cache)
     init_cache: Callable  # (batch, max_len, dtype, device) -> cache
+    cache_axes: Callable  # () -> logical-axes tree matching init_cache
 
 
 def build_model(cfg: ArchConfig) -> Model:
     mod = _MODULES.get(cfg.family)
     if mod is None:
-        item = _WAITING.get(cfg.family, "?")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP.md, {item!r})"
-        )
+        raise ValueError(f"unknown family {cfg.family!r}")
 
     def init(gen: torch.Generator):
         return mod.init_params(gen, cfg)
@@ -62,9 +62,13 @@ def build_model(cfg: ArchConfig) -> Model:
     def loss(params, batch):
         return mod.loss_fn(params, batch, cfg)
 
-    def prefill(params, tokens, max_len=None, patches=None):
+    def prefill(params, tokens, max_len=None, patches=None, frames=None):
         if max_len is None:
             max_len = tokens.shape[1] + cfg.num_patches
+        if cfg.family == "audio":
+            return mod.prefill(params, tokens, cfg, max_len, frames=frames)
+        if frames is not None:
+            raise ValueError(f"{cfg.name}: frames are the audio family's")
         if patches is None:
             return mod.prefill(params, tokens, cfg, max_len)
         return mod.prefill(params, tokens, cfg, max_len, patches=patches)
@@ -75,8 +79,11 @@ def build_model(cfg: ArchConfig) -> Model:
     def init_cache(batch, max_len, dtype=torch.bfloat16, device="cuda"):
         return mod.init_cache(batch, max_len, cfg, dtype, device)
 
+    def cache_axes():
+        return mod.cache_axes(cfg)
+
     return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
-                 decode=decode, init_cache=init_cache)
+                 decode=decode, init_cache=init_cache, cache_axes=cache_axes)
 
 
 def load_jax_params(tree, device="cuda") -> dict:
@@ -100,14 +107,19 @@ def to_device(params, device) -> dict:
 
 
 def compute_params(params, cfg: ArchConfig) -> dict:
-    """Serving copy of the parameters: the block matmul weights cast to the
-    compute dtype once.  Norm scales stay in their parameter dtype (the
-    norms read them in fp32) and so does the embedding (the logits head
-    multiplies in fp32)."""
+    """Serving copy of the parameters (dense and moe): the block matmul
+    weights cast to the compute dtype once.  Norm scales stay in their
+    parameter dtype (the norms read them in fp32), and so do the embedding
+    (the logits head multiplies in fp32) and the MoE router (routing is
+    fp32)."""
     cdt = L.dtype_of(cfg.compute_dtype)
     blocks = dict(params["blocks"])
-    for group in ("attn", "mlp"):
-        blocks[group] = tree_map(lambda t: t.to(cdt), blocks[group])
+    for group in ("attn", "mlp", "shared_mlp"):
+        if group in blocks:
+            blocks[group] = tree_map(lambda t: t.to(cdt), blocks[group])
+    if "moe" in blocks:
+        blocks["moe"] = {k: v if k == "router" else v.to(cdt)
+                         for k, v in blocks["moe"].items()}
     out = dict(params)
     out["blocks"] = blocks
     return out

@@ -1,0 +1,211 @@
+"""Encoder-decoder transformer (the SeamlessM4T-v2 backbone, ``audio``
+family): init, loss, prefill, decode.
+
+The torch counterpart of the JAX package's ``models/encdec.py``.  The audio
+frontend is a stub, as there: the batch carries precomputed frame embeddings
+(B, S_src, frontend_dim), which a learned linear maps to d_model.  Encoder
+layers are bidirectional self-attention + FFN; decoder layers are causal
+self-attention + cross-attention over the encoder memory + FFN.  Every
+attention is the flash-attention op: the encoder's and the cross-attention
+with ``causal=False`` (no RoPE on the cross q, k and v), the decoder's
+self-attention causal.
+
+Parameters have the JAX package's keys and shapes: ``encoder`` and
+``decoder`` stacked on a leading layer axis, ``embed``, ``frontend``,
+``enc_norm``, ``final_norm`` and the untied ``head``.  Both stacks run each
+layer under the config's remat.  Serving projects the cross K/V once at
+prefill and reuses them at every decode step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import (
+    _prefix_layers,
+    _remat,
+    _stack,
+    head_weight,
+    unbind_layers,
+)
+
+
+def _init_enc_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dt, dev = cfg.param_dtype, gen.device
+    return {"attn": L.init_attention(gen, cfg),
+            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt),
+            "norm1": L.init_rmsnorm(cfg.d_model, dt, dev),
+            "norm2": L.init_rmsnorm(cfg.d_model, dt, dev)}
+
+
+def _init_dec_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dt, dev = cfg.param_dtype, gen.device
+    p = {"self": L.init_attention(gen, cfg),
+         "cross": L.init_attention(gen, cfg),
+         "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt)}
+    for i in (1, 2, 3):
+        p[f"norm{i}"] = L.init_rmsnorm(cfg.d_model, dt, dev)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Random parameters on ``gen.device``, keyed and shaped as the JAX
+    package's."""
+    dt, dev = cfg.param_dtype, gen.device
+    params = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "frontend": L._init_dense(gen, (cfg.frontend_dim, cfg.d_model),
+                                  cfg.frontend_dim, dt),
+        "encoder": _stack([_init_enc_layer(gen, cfg)
+                           for _ in range(cfg.encoder_layers)]),
+        "decoder": _stack([_init_dec_layer(gen, cfg)
+                           for _ in range(cfg.num_layers)]),
+        "enc_norm": L.init_rmsnorm(cfg.d_model, dt, dev),
+        "final_norm": L.init_rmsnorm(cfg.d_model, dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = L._init_dense(
+            gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, dt)
+    return params
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def encode(params, frames, cfg: ArchConfig):
+    """frames: (B, S_src, frontend_dim) -> (B, S_src, D) memory."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    h = torch.einsum("bsf,fd->bsd", frames.to(cdt),
+                     params["frontend"].to(cdt))
+    positions = _positions(h.shape[0], h.shape[1], h.device)
+
+    def body(hh, lp):
+        n = L.rmsnorm(hh, lp["norm1"], cfg.norm_eps, cdt)
+        hh = hh + L.attention(lp["attn"], n, cfg, positions=positions,
+                              bidirectional=True)
+        n = L.rmsnorm(hh, lp["norm2"], cfg.norm_eps, cdt)
+        return hh + L.mlp(lp["mlp"], n, cdt)
+
+    body = _remat(body, cfg)
+    for lp in unbind_layers(params["encoder"]):
+        h = body(h, lp)
+    return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps, cdt)
+
+
+def _decoder_stack(params, h, memory, cfg: ArchConfig, *, positions):
+    cdt = L.dtype_of(cfg.compute_dtype)
+
+    def body(hh, lp, mem):
+        n = L.rmsnorm(hh, lp["norm1"], cfg.norm_eps, cdt)
+        hh = hh + L.attention(lp["self"], n, cfg, positions=positions)
+        n = L.rmsnorm(hh, lp["norm2"], cfg.norm_eps, cdt)
+        ckv = L.cross_kv_from_memory(lp["cross"], mem, cfg)
+        hh = hh + L.attention(lp["cross"], n, cfg, positions=positions,
+                              cross_kv=ckv)
+        n = L.rmsnorm(hh, lp["norm3"], cfg.norm_eps, cdt)
+        return hh + L.mlp(lp["mlp"], n, cdt)
+
+    body = _remat(body, cfg)
+    for lp in unbind_layers(params["decoder"]):
+        h = body(h, lp, memory)
+    return h
+
+
+def loss_fn(params, batch, cfg: ArchConfig):
+    """batch: frames (B, S_src, F), tokens (B, S_tgt), labels (B, S_tgt).
+    Returns (ce, {"ce", "aux"}); the aux loss is zero."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    memory = encode(params, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    h = L.embed(params["embed"], tokens, cdt)
+    h = _decoder_stack(params, h, memory, cfg,
+                       positions=_positions(*tokens.shape, tokens.device))
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
+    w, transpose = head_weight(params, cfg)
+    ce = L.chunked_xent(h, w, batch["labels"], transpose=transpose,
+                        chunk=cfg.loss_chunk)
+    return ce, {"ce": ce,
+                "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+
+
+# -- serving ----------------------------------------------------------------
+
+
+def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
+    """Per decoder layer, stacked: the self-attention KV cache and the
+    cross K/V of a ``source_len``-long memory."""
+    shape = (cfg.num_layers, batch, cfg.source_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    kv = L.init_kv_cache(batch, max_len, cfg, dtype, device)
+    return {
+        "self": {k: torch.zeros((cfg.num_layers,) + tuple(v.shape),
+                                dtype=v.dtype, device=device)
+                 for k, v in kv.items()},
+        "cross": {k: torch.zeros(shape, dtype=L.dtype_of(dtype),
+                                 device=device) for k in ("k", "v")},
+    }
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    axes = ("batch", "seq", "kv_heads", "head_dim")
+    return _prefix_layers({"self": L.kv_cache_axes(cfg),
+                           "cross": {"k": axes, "v": axes}})
+
+
+def prefill(params, tokens, cfg: ArchConfig, max_len: int, frames=None):
+    """Encode the source frames (B, source_len, F), then run the target
+    prefix tokens (B, S) through the decoder, writing its self-attention
+    cache and the cross K/V.  Returns (last-token logits, cache)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs its "
+                         "frames")
+    if frames.shape[1] != cfg.source_len:
+        raise ValueError(
+            f"{cfg.name}: prefill frames are {frames.shape[1]} long, the "
+            f"cross-attention cache holds source_len = {cfg.source_len}")
+    cdt = L.dtype_of(cfg.compute_dtype)
+    memory = encode(params, frames, cfg)
+    h = L.embed(params["embed"], tokens, cdt)
+    positions = _positions(*tokens.shape, tokens.device)
+    cache = init_cache(tokens.shape[0], max_len, cfg, cdt, tokens.device)
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
+        self_cache = {k: v[i] for k, v in cache["self"].items()}
+        n = L.rmsnorm(h, lp["norm1"], cfg.norm_eps, cdt)
+        a, _ = L.attention_prefill(lp["self"], n, cfg, positions=positions,
+                                   cache=self_cache)
+        h = h + a
+        n = L.rmsnorm(h, lp["norm2"], cfg.norm_eps, cdt)
+        ck, cv = L.cross_kv_from_memory(lp["cross"], memory, cfg)
+        cache["cross"]["k"][i] = ck
+        cache["cross"]["v"][i] = cv
+        h = h + L.attention(lp["cross"], n, cfg, positions=positions,
+                            cross_kv=(ck, cv))
+        n = L.rmsnorm(h, lp["norm3"], cfg.norm_eps, cdt)
+        h = h + L.mlp(lp["mlp"], n, cdt)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
+    w, transpose = head_weight(params, cfg)
+    return L.logits_head(w, h[:, -1:], transpose=transpose), cache
+
+
+def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
+    """token: (B,1) integer.  Returns (logits, cache); the self-attention
+    cache is updated in place, the cross K/V are read."""
+    cdt = L.dtype_of(cfg.compute_dtype)
+    h = L.embed(params["embed"], token, cdt)
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
+        n = L.rmsnorm(h, lp["norm1"], cfg.norm_eps, cdt)
+        a, _ = L.attention_decode(
+            lp["self"], n, cfg,
+            cache={k: v[i] for k, v in cache["self"].items()},
+            cache_len=cache_len)
+        h = h + a
+        n = L.rmsnorm(h, lp["norm2"], cfg.norm_eps, cdt)
+        ckv = (cache["cross"]["k"][i].to(cdt), cache["cross"]["v"][i].to(cdt))
+        h = h + L.attention(lp["cross"], n, cfg, positions=None, cross_kv=ckv)
+        n = L.rmsnorm(h, lp["norm3"], cfg.norm_eps, cdt)
+        h = h + L.mlp(lp["mlp"], n, cdt)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
+    w, transpose = head_weight(params, cfg)
+    return L.logits_head(w, h, transpose=transpose), cache

@@ -1,10 +1,14 @@
-"""Pure-SSM stack (Mamba-2): init, loss, prefill, decode.
+"""Hybrid attention/Mamba stack (Jamba) and pure-SSM stack (Mamba-2): init,
+loss, prefill, decode.
 
-The torch counterpart of the ``ssm`` branches of the JAX package's
-``models/hybrid.py``.  Block parameters are stacked on a leading ``layers``
-axis, as there, and the JAX ``lax.scan`` over that axis is a Python loop.
-The hybrid (Jamba) superblock is not ported yet: every entry point raises
-for the ``hybrid`` family.
+The torch counterpart of the JAX package's ``models/hybrid.py``.  Jamba
+interleaves 1 attention : 7 mamba layers per period of 8 and swaps the dense
+FFN for MoE on every other layer.  The stack runs over *superblocks* (one
+interleave period each), whose parameters are stacked per kind of sublayer
+(``attn``, ``mamba``, ``mlp``, ``moe``, and the period's ``norm1``/``norm2``),
+as there; the JAX ``lax.scan`` over superblocks is a Python loop, each
+superblock under the config's remat.  The pure-SSM family (mamba2) runs
+homogeneous mixer-only layers stacked on a leading ``layers`` axis.
 """
 from __future__ import annotations
 
@@ -13,33 +17,145 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
+from repro_torch.models import moe as M
 from repro_torch.models.transformer import (
+    _prefix_layers,
     _remat,
     _stack,
     head_weight,
     unbind_layers,
 )
 
+# ---------------------------------------------------------------------------
+# Jamba superblocks
+# ---------------------------------------------------------------------------
 
-def _ssm_only(cfg: ArchConfig) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} superblock is not ported yet "
-            "(ROADMAP.md, 'the jamba superblock')"
-        )
+
+def _sublayer_kinds(cfg: ArchConfig):
+    """Static description of one interleave period: list of (mixer, ffn)."""
+    kinds = []
+    for j in range(cfg.attn_every):
+        mixer = "attn" if j == cfg.attn_offset else "mamba"
+        if cfg.moe is not None and j % cfg.moe.every_k == cfg.moe.offset:
+            ffn = "moe"
+        elif cfg.d_ff:
+            ffn = "mlp"
+        else:
+            ffn = "none"
+        kinds.append((mixer, ffn))
+    return kinds
+
+
+def _n_mamba(cfg: ArchConfig) -> int:
+    return sum(1 for m, _ in _sublayer_kinds(cfg) if m == "mamba")
+
+
+def init_superblock(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """One period's parameters, stacked per kind of sublayer."""
+    kinds = _sublayer_kinds(cfg)
+    dt, dev = cfg.param_dtype, gen.device
+    counts = {k: sum(1 for m, f in kinds if k in (m, f))
+              for k in ("attn", "mamba", "mlp", "moe")}
+    inits = {
+        "attn": lambda: L.init_attention(gen, cfg),
+        "mamba": lambda: MB.init_mamba(gen, cfg),
+        "mlp": lambda: L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt),
+        "moe": lambda: M.init_moe(gen, cfg.d_model, cfg.moe, dt),
+    }
+    params = {k: _stack([inits[k]() for _ in range(n)])
+              for k, n in counts.items() if n}
+    for name in ("norm1", "norm2"):
+        params[name] = torch.ones((len(kinds), cfg.d_model),
+                                  dtype=L.dtype_of(dt), device=dev)
+    return params
+
+
+def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
+                     decode_len=None):
+    """Apply one interleave period.
+
+    caches: optional {"kv": one layer's KV cache, "ssm": the period's mamba
+    caches stacked (n_mamba, ...)}; when given, attention takes the prefill
+    path (``decode_len`` None) or the decode path, writing the KV cache in
+    place.  Returns (x, aux, new_caches), new_caches {"kv", "ssm"} with the
+    mamba layers' new states stacked, or None without caches.
+    """
+    kinds = _sublayer_kinds(cfg)
+    cdt = cfg.compute_dtype
+    per_kind = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in p.items()}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    i_attn = i_mamba = i_mlp = i_moe = 0
+    new_ssm = []
+    for j, (mixer, ffn) in enumerate(kinds):
+        h = L.rmsnorm(x, per_kind["norm1"][j], cfg.norm_eps, cdt)
+        if mixer == "attn":
+            ap = per_kind["attn"][i_attn]
+            if caches is None:
+                y = L.attention(ap, h, cfg, positions=positions)
+            elif decode_len is None:
+                y, _ = L.attention_prefill(ap, h, cfg, positions=positions,
+                                           cache=caches["kv"])
+            else:
+                y, _ = L.attention_decode(ap, h, cfg, cache=caches["kv"],
+                                          cache_len=decode_len)
+            i_attn += 1
+        else:
+            mp = per_kind["mamba"][i_mamba]
+            if caches is None:
+                y, _ = MB.mamba_forward(mp, h, cfg)
+            elif decode_len is None:
+                y, st = MB.mamba_forward(mp, h, cfg)
+                new_ssm.append(st)
+            else:
+                y, st = MB.mamba_step(
+                    mp, h, cfg, {k: v[i_mamba] for k, v in caches["ssm"].items()})
+                new_ssm.append(st)
+            i_mamba += 1
+        x = x + y
+        if ffn == "none":
+            continue
+        h = L.rmsnorm(x, per_kind["norm2"][j], cfg.norm_eps, cdt)
+        if ffn == "moe":
+            y, a = M.moe_ffn(per_kind["moe"][i_moe], h, cfg.moe, cdt)
+            aux = aux + a
+            i_moe += 1
+        else:
+            y = L.mlp(per_kind["mlp"][i_mlp], h, cdt)
+            i_mlp += 1
+        x = x + y
+    new_caches = None
+    if caches is not None:
+        new_caches = {"kv": caches["kv"], "ssm": _stack(new_ssm)}
+    return x, aux, new_caches
+
+
+# ---------------------------------------------------------------------------
+# Full models (shared by the hybrid and ssm families)
+# ---------------------------------------------------------------------------
+
+
+def _n_superblocks(cfg: ArchConfig) -> int:
+    if cfg.num_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole "
+                         f"periods of {cfg.attn_every}")
+    return cfg.num_layers // cfg.attn_every
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on ``gen.device``, keyed and shaped as the JAX
-    package's (blocks stacked on a leading layer axis)."""
-    _ssm_only(cfg)
+    package's (blocks stacked on a leading layer or superblock axis)."""
     dev = gen.device
     emb = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, cfg.param_dtype)
-    blocks = _stack([
-        {"mixer": MB.init_mamba(gen, cfg),
-         "norm": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)}
-        for _ in range(cfg.num_layers)
-    ])
+    if cfg.family == "ssm":
+        blocks = _stack([
+            {"mixer": MB.init_mamba(gen, cfg),
+             "norm": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)}
+            for _ in range(cfg.num_layers)
+        ])
+    else:
+        blocks = _stack([init_superblock(gen, cfg)
+                         for _ in range(_n_superblocks(cfg))])
     params = {"embed": emb, "blocks": blocks,
               "final_norm": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev)}
     if not cfg.tie_embeddings:
@@ -49,26 +165,44 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
-def run_stack(params, x, cfg: ArchConfig, *, positions=None):
-    """The block stack, each layer under the config's remat.  Returns
-    (hidden, aux_loss_sum); the SSM stack has no auxiliary loss."""
-    _ssm_only(cfg)
+def run_stack(params, x, cfg: ArchConfig, *, positions):
+    """The block stack, each layer (ssm) or superblock (hybrid) under the
+    config's remat.  Returns (hidden, aux_loss_sum): the MoE aux losses of
+    the hybrid stack, zero for the SSM stack."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
 
-    def body(h, bp):
-        n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cfg.compute_dtype)
-        y, _ = MB.mamba_forward(bp["mixer"], n, cfg)
-        return h + y
+        def body(h, bp):
+            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cfg.compute_dtype)
+            y, _ = MB.mamba_forward(bp["mixer"], n, cfg)
+            return h + y
 
-    body = _remat(body, cfg)
+        body = _remat(body, cfg)
+        for bp in unbind_layers(params["blocks"]):
+            x = body(x, bp)
+        return x, aux
+
+    def sb_body(h, bp):
+        h, a, _ = apply_superblock(bp, h, cfg, positions=positions)
+        return h, a
+
+    sb_body = _remat(sb_body, cfg)
     for bp in unbind_layers(params["blocks"]):
-        x = body(x, bp)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, a = sb_body(x, bp)
+        aux = aux + a
+    return x, aux
+
+
+def _positions(tokens):
+    b, s = tokens.shape
+    return torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
     cdt = L.dtype_of(cfg.compute_dtype)
     h = L.embed(params["embed"], batch["tokens"], cdt)
-    h, aux = run_stack(params, h, cfg)
+    positions = None if cfg.family == "ssm" else _positions(batch["tokens"])
+    h, aux = run_stack(params, h, cfg, positions=positions)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
     ce = L.chunked_xent(
@@ -80,47 +214,86 @@ def loss_fn(params, batch, cfg: ArchConfig):
 # -- serving ----------------------------------------------------------------
 
 
+def _zeros_stacked(tree: dict, n: int) -> dict:
+    return {k: _zeros_stacked(v, n) if isinstance(v, dict) else
+            torch.zeros((n,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in tree.items()}
+
+
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
-    """Per-layer conv tails and SSM state, stacked on a leading layer axis
-    (``max_len`` is unused: the state does not grow)."""
-    _ssm_only(cfg)
-    one = MB.init_mamba_cache(batch, cfg, dtype, device)
-    return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
-                           device=device)
-            for k, v in one.items()}
+    """ssm: per-layer conv tails and SSM state, stacked on a leading layer
+    axis (``max_len`` is unused: the state does not grow).  hybrid: per
+    superblock, its attention layer's KV cache and its mamba layers' caches
+    stacked: {"kv": (n_sb, B, max_len, K, hd), "ssm": (n_sb, n_mamba, ...)}."""
+    ssm = MB.init_mamba_cache(batch, cfg, dtype, device)
+    if cfg.family == "ssm":
+        return _zeros_stacked(ssm, cfg.num_layers)
+    one = {"kv": L.init_kv_cache(batch, max_len, cfg, dtype, device),
+           "ssm": _zeros_stacked(ssm, _n_mamba(cfg))}
+    return _zeros_stacked(one, _n_superblocks(cfg))
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    """Logical axes of :func:`init_cache`'s tree, as the JAX package's."""
+    if cfg.family == "ssm":
+        return _prefix_layers(dict(MB.MAMBA_CACHE_AXES))
+    return _prefix_layers({"kv": L.kv_cache_axes(cfg),
+                           "ssm": _prefix_layers(dict(MB.MAMBA_CACHE_AXES))})
 
 
 def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     """Forward pass over the prompt; returns (last-token logits, cache).
 
-    tokens: (B, S) integer.
+    tokens: (B, S) integer.  The hybrid cache is :func:`init_cache`'s, its
+    KV caches written in place and its SSM states those of the prompt.
     """
-    _ssm_only(cfg)
     cdt = L.dtype_of(cfg.compute_dtype)
     h = L.embed(params["embed"], tokens, cdt)
     caches = []
-    for bp in unbind_layers(params["blocks"]):
-        n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
-        y, st = MB.mamba_forward(bp["mixer"], n, cfg)
-        h = h + y
-        caches.append(st)
+    if cfg.family == "ssm":
+        for bp in unbind_layers(params["blocks"]):
+            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
+            y, st = MB.mamba_forward(bp["mixer"], n, cfg)
+            h = h + y
+            caches.append(st)
+        cache = _stack(caches)
+    else:
+        positions = _positions(tokens)
+        cache = init_cache(h.shape[0], max_len, cfg, cdt, tokens.device)
+        for i, bp in enumerate(unbind_layers(params["blocks"])):
+            cache_in = {"kv": {k: v[i] for k, v in cache["kv"].items()},
+                        "ssm": {k: v[i] for k, v in cache["ssm"].items()}}
+            h, _, new = apply_superblock(bp, h, cfg, positions=positions,
+                                         caches=cache_in)
+            caches.append(new["ssm"])
+        cache = {"kv": cache["kv"], "ssm": _stack(caches)}
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose), _stack(caches)
+    return L.logits_head(w, h[:, -1:], transpose=transpose), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
-    """token: (B,1) integer.  Returns (logits, new cache)."""
-    _ssm_only(cfg)
+    """token: (B,1) integer.  Returns (logits, new cache); the hybrid KV
+    caches are updated in place."""
     cdt = L.dtype_of(cfg.compute_dtype)
     h = L.embed(params["embed"], token, cdt)
     caches = []
-    for i, bp in enumerate(unbind_layers(params["blocks"])):
-        n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
-        y, st = MB.mamba_step(bp["mixer"], n, cfg,
-                              {k: v[i] for k, v in cache.items()})
-        h = h + y
-        caches.append(st)
+    if cfg.family == "ssm":
+        for i, bp in enumerate(unbind_layers(params["blocks"])):
+            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
+            y, st = MB.mamba_step(bp["mixer"], n, cfg,
+                                  {k: v[i] for k, v in cache.items()})
+            h = h + y
+            caches.append(st)
+        new_cache = _stack(caches)
+    else:
+        for i, bp in enumerate(unbind_layers(params["blocks"])):
+            cache_in = {"kv": {k: v[i] for k, v in cache["kv"].items()},
+                        "ssm": {k: v[i] for k, v in cache["ssm"].items()}}
+            h, _, new = apply_superblock(bp, h, cfg, positions=None,
+                                         caches=cache_in, decode_len=cache_len)
+            caches.append(new["ssm"])
+        new_cache = {"kv": cache["kv"], "ssm": _stack(caches)}
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose), _stack(caches)
+    return L.logits_head(w, h, transpose=transpose), new_cache

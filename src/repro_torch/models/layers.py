@@ -1,5 +1,6 @@
-"""Shared model substrate: norms, RoPE, GQA attention (full-sequence, and
-with a bf16 KV cache), the SwiGLU MLP, embedding, head and cross-entropy.
+"""Shared model substrate: norms, RoPE, GQA attention (causal, bidirectional
+and cross, full-sequence, and with a bf16 KV cache), the SwiGLU MLP,
+embedding, head and cross-entropy.
 
 Parameters are plain dicts of tensors with the JAX package's keys and shapes
 (``repro.models.layers``), so a parameter tree crosses between the two
@@ -140,25 +141,43 @@ def _sdpa(q, k, v, cfg, *, q_offset: Optional[torch.Tensor] = None,
 
 def attention(p, x, cfg, *, positions, mask=None, cross_kv=None,
               bidirectional: bool = False):
-    """Full-sequence causal self-attention (train, no cache read), through
-    the flash-attention op and so through the kernel.  Query i sees keys
-    j <= i, the JAX dense path's ``causal_mask(sq, skv, 0)``.
+    """Full-sequence attention (train / prefill, no cache read), through
+    the flash-attention op and so through the kernel.
 
-    Cross-attention and bidirectional visibility belong to the encoder-
-    decoder family, and an explicit mask to no caller of the port: each
-    raises."""
-    if cross_kv is not None or bidirectional:
-        raise NotImplementedError(
-            "cross-attention and bidirectional attention wait for the "
-            "encoder-decoder family (ROADMAP.md, 'encdec')")
+    Causal self-attention by default: query i sees keys j <= i, the JAX
+    dense path's ``causal_mask(sq, skv, 0)``.  ``bidirectional`` lets every
+    query see every key (the encoder).  ``cross_kv``: a (k, v) pair
+    projected from the encoder memory (:func:`cross_kv_from_memory`); q is
+    projected without RoPE, as k and v were, and sees the whole memory.
+    Both run the op with ``causal=False`` and no masks.  An explicit mask
+    has no caller in the port and raises."""
     if mask is not None:
         raise NotImplementedError(
             "attention takes no explicit mask in the port: the flash op "
             "masks causally (and by per-row q_offset / kv_len)")
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _sdpa(q, k, v, cfg)
     cdt = dtype_of(cfg.compute_dtype)
+    if cross_kv is None:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+        if "bq" in p:
+            q = q + p["bq"].to(cdt)
+        k, v = cross_kv
+        bidirectional = True
+    out = _sdpa(q, k, v, cfg, causal=not bidirectional)
     return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(cdt))
+
+
+def cross_kv_from_memory(p, memory, cfg):
+    """Project the encoder memory to (k, v) once (reused across decode
+    steps); no RoPE, as in the JAX package."""
+    cdt = dtype_of(cfg.compute_dtype)
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"].to(cdt))
+    if "bk" in p:
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    return k, v
 
 
 def causal_mask(sq: int, skv: int, offset: int = 0, device=None):
@@ -178,6 +197,18 @@ def init_kv_cache(batch: int, max_len: int, cfg, dtype, device) -> dict:
         "k": torch.zeros(shape, dtype=dtype_of(dtype), device=device),
         "v": torch.zeros(shape, dtype=dtype_of(dtype), device=device),
     }
+
+
+KV_CACHE_AXES = {
+    "k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+    "v": ("batch", "kv_seq", "kv_heads", "head_dim"),
+}
+
+
+def kv_cache_axes(cfg) -> dict:
+    """The logical axes of one layer's KV cache (the port has only the
+    bf16/fp32 cache, so no scale entries)."""
+    return dict(KV_CACHE_AXES)
 
 
 def _cache_write(cache, k, v, pos: int) -> None:

@@ -1,8 +1,7 @@
 """Decoder-only transformer stack (dense / moe / vlm families): init, loss,
 prefill, decode.
 
-Reached through :func:`repro_torch.models.build.build_model`, which refuses
-the families not ported yet.
+Reached through :func:`repro_torch.models.build.build_model`.
 
 Block parameters are stacked on a leading ``layers`` axis, as in the JAX
 package, so parameter trees cross between the packages unchanged; the JAX
@@ -46,6 +45,12 @@ def _stack(trees: list):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _prefix_layers(axes: dict) -> dict:
+    """Prepend the stacked ``layers`` axis to every logical-axes tuple."""
+    return {k: _prefix_layers(v) if isinstance(v, dict) else ("layers",) + v
+            for k, v in axes.items()}
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -188,6 +193,10 @@ def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
     return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
                            device=device)
             for k, v in one.items()}
+
+
+def cache_axes(cfg: ArchConfig) -> dict:
+    return _prefix_layers(L.kv_cache_axes(cfg))
 
 
 def prefill(params, tokens, cfg: ArchConfig, max_len: int, patches=None):

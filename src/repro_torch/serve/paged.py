@@ -13,7 +13,8 @@ view index ``v`` of the gathered per-slot cache
 
 is exactly logical position ``v``.  Two functions, both running the
 ``repro_torch.models.transformer`` block body (same rmsnorm / attention /
-mlp):
+FFN: the SwiGLU MLP, or in the ``moe`` family the routed experts plus any
+shared expert):
 
 * :func:`prefill_chunk` — one prompt chunk of one request (batch 1, padded
   to a pow2 ``bucket``), scatter-writes the chunk's K/V into the pool and
@@ -34,6 +35,12 @@ Where this differs from the JAX package's ``repro.serve.paged``:
 * out-of-range block-table reads of padded prefill lanes are clamped, as
   JAX clamps them, before those lanes are routed to the scratch block.
 
+An MoE block routes the tokens of the call, as the JAX package's does: its
+dispatch groups and capacity come from how many tokens the call holds (a
+prefill chunk's bucket, padding included, or one token a slot), so a chunked
+prefill may drop a choice that a whole-prompt prefill keeps, and the
+reverse.
+
 The write-then-gather order is kept: the chunk's own K/V are in the view it
 attends over.  The gather stays in PyTorch (a kernel that reads through the
 block table is later work).  The pool always stores ``cfg.compute_dtype``.
@@ -44,10 +51,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import head_weight, layer
+from repro_torch.models.transformer import _ffn, head_weight, layer
 from repro_torch.serve.policy import ServeConfig
 
-SUPPORTED_FAMILIES = ("dense",)
+SUPPORTED_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -110,7 +117,7 @@ def _stack_forward(params, pool, tokens, cfg, *, positions, write_bi,
             tables=tables, q_offset=q_offset, kv_len=kv_len,
         )
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + L.mlp(bp["mlp"], n, cdt)
+        h = h + _ffn(bp, n, cfg)[0]
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
 
 

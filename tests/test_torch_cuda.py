@@ -417,3 +417,113 @@ def test_llama_train_step_at_full_width_two_layers(dev):
     assert float(metrics["aux"]) == 0.0
     assert fa.LAUNCHES.count - f0 == 2 * 2 * 2
     assert rms.LAUNCHES.count - r0 == (2 * 2 * 2 + 1) * 2
+
+
+# the encoder-decoder's and jamba's attention shapes (B, Sq, Skv, H, K, D,
+# causal): seamless-m4t's encoder and cross-attention in training (frames as
+# long as the tokens), its decoder self-attention, a decode step's cross-
+# attention over the 4096-frame memory, and jamba's 64/8 heads of 128
+NEW_PATH_SHAPES = {
+    "encdec encoder / cross": (4, 2048, 2048, 16, 16, 64, False),
+    "encdec decoder self": (4, 2048, 2048, 16, 16, 64, True),
+    "encdec cross, Sq != Skv": (2, 300, 2048, 16, 16, 64, False),
+    "encdec decode cross": (2, 1, 4096, 16, 16, 64, False),
+    "jamba 64/8 heads of 128": (2, 2048, 2048, 64, 8, 128, True),
+}
+
+
+@pytest.mark.parametrize("case", list(NEW_PATH_SHAPES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 4e-3)])
+def test_flash_op_at_encdec_and_jamba_shapes(dev, case, dtype, tol):
+    """Non-causal rows see every key; no mask, as ``layers.attention``
+    calls the op for the encoder and the cross-attention."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, skv, h, kh, d, causal = NEW_PATH_SHAPES[case]
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, skv, kh, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    n0 = fa.LAUNCHES.count
+    out = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES.count == n0 + 1
+    torch.testing.assert_close(out, attention_ref(q, k, v, causal=causal),
+                               rtol=tol, atol=tol)
+
+
+def test_paged_moe_decode_on_card_matches_sequential_decode(dev):
+    """The smoke qwen3-moe at a capacity no group can overflow: prefill one
+    request chunk by chunk into the pool on the card, then four decode
+    steps, each against ``Model.prefill`` / ``decode`` on the card."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import build_model
+    from repro_torch.serve import paged
+    from repro_torch.serve.policy import ServeConfig
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-moe-235b-a22b")),
+                              num_layers=2)
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(slots=1, max_len=48, block_size=8, chunk=8)
+    prompt = np.random.default_rng(0).integers(1, cfg.vocab_size, 19,
+                                               dtype=np.int32)
+    pool = paged.init_pool(cfg, scfg, dev)
+    table = torch.arange(1, scfg.max_blocks_per_slot + 1, dtype=torch.int32,
+                         device=dev)
+    with torch.inference_mode():
+        start = 0
+        while start < len(prompt):
+            width = min(scfg.chunk, len(prompt) - start)
+            toks = np.zeros((1, scfg.bucket(width)), np.int32)
+            toks[0, :width] = prompt[start:start + width]
+            logits, pool = paged.prefill_chunk(
+                params, pool, torch.as_tensor(toks, device=dev), start,
+                width, table, 0, cfg, scfg)
+            start += width
+        want, cache = model.prefill(
+            params, torch.as_tensor(prompt[None], device=dev), scfg.max_len)
+        torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+        clen = len(prompt)
+        for _ in range(4):
+            tok = torch.argmax(want[:, -1], -1)[:, None].to(torch.int32)
+            logits, pool = paged.decode_batch(
+                params, pool, tok, torch.tensor([clen], dtype=torch.int32,
+                                                device=dev),
+                table[None], cfg, scfg)
+            want, cache = model.decode(params, cache, tok, clen)
+            torch.testing.assert_close(logits, want, rtol=1e-4, atol=1e-4)
+            clen += 1
+
+
+def test_seamless_smoke_trains_two_steps_on_card(dev):
+    """The smoke seamless-m4t through ``launch.train`` on the card: finite
+    losses, and a step's kernel launches as the code runs them (per
+    microbatch each encoder layer's attention and two block norms, each
+    decoder layer's two attentions and three block norms, forward and remat
+    recompute, plus the encoder's and the decoder's final norms)."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.launch.train import train
+
+    cfg = smoke_variant(get_config("seamless-m4t-large-v2"))
+    counts = []
+    seen = [fa.LAUNCHES.count, rms.LAUNCHES.count]
+
+    def on_step(i, rec):
+        counts.append((fa.LAUNCHES.count - seen[0],
+                       rms.LAUNCHES.count - seen[1]))
+        seen[:] = [fa.LAUNCHES.count, rms.LAUNCHES.count]
+
+    _, losses = train(cfg, steps=2, seq=64, batch=4, grad_accum=2,
+                      device=dev, on_step=on_step, log_fn=lambda _: None)
+    assert np.isfinite(losses).all()
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    assert counts == [(2 * 2 * (enc + 2 * dec),
+                       2 * (2 * (2 * enc + 3 * dec) + 2))] * 2

@@ -154,14 +154,32 @@ def test_flash_cost_refuses_a_traced_mask():
 
 
 def test_attention_layer_refuses_what_waits_for_encdec(rng):
+    """The encoder-decoder family no longer waits: bidirectional and cross
+    attention run through the op with ``causal=False`` (its plain version
+    on the CPU, every key visible); an explicit mask has no caller in the
+    port and is still refused."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
     cfg = _smoke(port_configs, "llama3.2-1b")
     p = layers.init_attention(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros((1, 4, cfg.d_model))
+    x = torch.from_numpy(rng.standard_normal((1, 4, cfg.d_model)).astype(
+        np.float32))
+    mem = torch.from_numpy(rng.standard_normal((1, 7, cfg.d_model)).astype(
+        np.float32))
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="encdec"):
-        layers.attention(p, x, cfg, positions=pos, bidirectional=True)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        layers.attention(p, x, cfg, positions=pos, cross_kv=(x, x))
+    q, k, v = layers._project_qkv(p, x, cfg, pos)
+    want = torch.einsum("bqhk,hkd->bqd",
+                        attention_ref(q, k, v, causal=False), p["wo"])
+    got = layers.attention(p, x, cfg, positions=pos, bidirectional=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL["float32"],
+                               atol=TOL["float32"])
+    ck, cv = layers.cross_kv_from_memory(p, mem, cfg)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    want = torch.einsum("bqhk,hkd->bqd",
+                        attention_ref(q, ck, cv, causal=False), p["wo"])
+    got = layers.attention(p, x, cfg, positions=None, cross_kv=(ck, cv))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL["float32"],
+                               atol=TOL["float32"])
     with pytest.raises(NotImplementedError, match="mask"):
         layers.attention(p, x, cfg, positions=pos,
                          mask=torch.ones((1, 1, 4, 4), dtype=torch.bool))

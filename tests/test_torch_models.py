@@ -119,9 +119,10 @@ def test_compute_params_cast_once_gives_identical_numbers(pair, rng):
     assert torch.equal(a, b)
 
 
-# dense, moe, vlm and ssm are ported; hybrid (jamba) and audio (encdec) wait
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(port_configs.get_config(arch))
+@pytest.mark.parametrize("arch", jax_configs.list_archs())
+def test_every_config_builds_with_the_reference_cache_axes(arch):
+    """Every family of the JAX package is ported: each published config
+    builds, and its cache's logical axes are the JAX model's."""
+    model = build_model(port_configs.get_config(arch))
+    jmodel = jax_build_model(jax_configs.get_config(arch))
+    assert model.cache_axes() == jmodel.cache_axes()

@@ -276,11 +276,21 @@ def test_sim_accuracy_runs_end_to_end_on_the_cpu(monkeypatch):
     monkeypatch.setattr(sim_accuracy, "REFINE_TOP", 4)
     cfg = dataclasses.replace(sim_accuracy.smoke_config("mamba2-2.7b"),
                               num_layers=2)
-    row = sim_accuracy.run(cfg, seq=32, batch=2, steps=1, profile_repeats=1,
+    row = sim_accuracy.run(cfg, seq=32, batch=2, steps=5, profile_repeats=1,
                            device="cpu", log_fn=lambda _: None)
     assert row["name"] == "table2_ssm_mamba2"
     assert row["platform"] == "cpu_host"
     assert row["measured_s"] > 0
+    # the median of five steps timed one by one, beside their spread; the
+    # errors are against the median; no card, so no events or busy time
+    assert len(row["measured_steps_s"]) == 5
+    assert row["measured_s"] == np.median(row["measured_steps_s"])
+    assert row["measured_min_s"] <= row["measured_s"] <= row["measured_max_s"]
+    assert row["measured_min_s"] == min(row["measured_steps_s"])
+    assert row["measured_max_s"] == max(row["measured_steps_s"])
+    assert row["err_offline"] == pytest.approx(
+        abs(row["sim_offline_s"] - row["measured_s"]) / row["measured_s"])
+    assert row["busy_s"] is None and row["measured_event_s"] is None
     assert np.isfinite([row["err_offline"], row["err_refined"]]).all()
     assert row["refined_signatures"] == 4
     assert row["provenance_offline"]["learned"] > 0
@@ -294,3 +304,30 @@ def test_sim_accuracy_runs_end_to_end_on_the_cpu(monkeypatch):
     # the CPU step runs the plain versions: no kernel launches
     assert row["kernel_launches_per_step"] == {"ssd_scan": 0, "rmsnorm": 0,
                                                "flash_attention": 0}
+
+
+def test_sim_accuracy_needs_five_timed_steps():
+    cfg = sim_accuracy.smoke_config("mamba2-2.7b")
+    with pytest.raises(ValueError, match="at least 5"):
+        sim_accuracy.run(cfg, seq=32, batch=2, steps=4, device="cpu")
+
+
+def test_busy_seconds_is_the_union_of_device_intervals():
+    """Overlapping and nested kernels count once, gaps not at all; named
+    ranges (spans over kernels) and host events are left out."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def ev(name, lo, hi, device=DeviceType.CUDA, annotation=False):
+        return SimpleNamespace(name=name, device_type=device,
+                               is_user_annotation=annotation,
+                               time_range=SimpleNamespace(start=lo, end=hi))
+
+    events = [ev("gemm", 0, 10), ev("add", 5, 15), ev("cast", 6, 7),
+              ev("copy", 30, 40), ev("train_step.forward", 0, 100),
+              ev("repro_torch::flash_attention.backward", 0, 100),
+              ev("annotated", 0, 100, annotation=True),
+              ev("aten::mm", 0, 100, device=DeviceType.CPU)]
+    assert sim_accuracy.busy_seconds(events) == pytest.approx(25e-6)
+    assert sim_accuracy.busy_seconds([]) == 0.0
