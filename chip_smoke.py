@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # build, check and time the kernels
+    python3 chip_smoke.py --only pp        # kernels' checks, then this
+                                           # slice's remat and pp phases
 
 Phases, each printing one line of numbers:
 
@@ -111,7 +113,40 @@ Phases, each printing one line of numbers:
 17. encdec-decode — a prefill of ``source_len`` (4096) frames and a 64-token
              prefix, then 8 decode steps, each against the whole-sequence
              prefill in fp32 (launches asserted);
-18. a JSON line of every kernel at the serve and train shapes: launches on
+18. remat-dots — llama3.2-1b at full width and depth: one microbatch's
+             loss and gradient under the "none", "full" and "dots" remat
+             with the aten ops counted (the backward's ``aten.mm`` under
+             "dots" equals "none"'s: no projection recomputed; fewer than
+             "full"'s), then one step under "full" and one under "dots" from
+             the same weights (loss and grad norm within 2e-2; step time and
+             peak memory of each).  Phases 6, 9 and 15 run the "dots" remat
+             of their configs;
+19. pp-train — llama3.2-1b at full width and depth through
+             ``launch.train.train`` on 4 logical ranks of the one card: pp=2
+             x dp=2, 1F1B, int8 gradient compression with error feedback, the
+             [dense-train] tokens (8 x 2048, 4 microbatches of 1 x 2048 a data
+             rank), a warm-up step and 3 timed ones: per step the loss, times,
+             tokens/s, peak memory and launches (256 flash attentions and 520
+             RMSNorms asserted), the launcher's plan and parity lines, the
+             bytes the executor moved; then one more step under
+             torch.profiler (``pp-train-profile``).  The ranks share the card
+             and run one after another: the step time is not a multi-card
+             time;
+20. pp-check — the same step without compression against the unpipelined
+             step (grad_accum 4) on the same weights and tokens, under 1F1B,
+             GPipe and interleaved 1F1B (2 virtual stages a rank): loss and
+             grad norm within 2e-2;
+21. pp-plan, pp-parity, pp-one-card — one layer profiled on the card into
+             the dense simtrain row's ProfileDB; the [pp-train] strategy's
+             ``model_pipeline_graph`` priced from it on 4 H100 SXM and
+             simulated; its boundary and all-reduce bytes held exactly
+             against the executor's twins and the bytes [pp-train] moved;
+             the same schedule priced with every rank on one card against the
+             measured median (not gated);
+22. autotune — the (dp x pp x microbatch x schedule) candidates for
+             llama3.2-1b on 8 H100 SXM from the card-profiled layer cost,
+             every chunk priced from the DB: the top 5 (simulated);
+23. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -150,6 +185,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2e-2        # tests/test_kernels.py::tol for bfloat16
@@ -274,7 +310,9 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                                              torch.bfloat16, ATTN_BF16_TOL,
                                              True),
                "encdec-decode-cross": ((2, 1, 4096, 16, 16, 64), torch.float32,
-                                       FP32_TOL, False)}
+                                       FP32_TOL, False),
+               "pp-train": ((1, 2048, 2048, 32, 8, 64), torch.bfloat16,
+                            ATTN_BF16_TOL, True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -296,6 +334,15 @@ JAMBA_DECODE = dict(batch=2, prompt=512, decode=8, seed=1, tol=1e-3)
 ENCDEC_ARCH = "seamless-m4t-large-v2"
 ENCDEC = dict(seq=2048, batch=8, grad_accum=2, steps=3, seed=0)
 ENCDEC_DECODE = dict(batch=2, prompt=64, decode=8, seed=1, tol=1e-3)
+# [pp-*]: llama3.2-1b at full width and depth on 4 logical ranks of the one
+# card, pp=2 x dp=2, 1F1B, int8 compression with error feedback: the
+# [dense-train] tokens (a global batch of 8 x 2048), each data rank 4
+# microbatches of 1 x 2048; a warm-up step and 3 timed ones
+PP = dict(seq=2048, batch=8, pp=2, dp=2, microbatches=4, schedule="1f1b",
+          compression="int8", steps=4, seed=0)
+# [autotune]: llama3.2-1b on 8 H100 SXM at PP's global batch; the layer is
+# profiled on the card at every microbatch size a candidate can have
+AUTOTUNE = dict(chips=8, micro_batches=(1, 2, 4, 8))
 
 
 def phase(tag: str, **fields) -> None:
@@ -1455,11 +1502,12 @@ def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
             "platform": platform_for_device(torch.cuda.get_device_name(dev))}
 
 
-def profile_train_step(dev, ctx: dict, tag: str) -> None:
+def profile_train_step(dev, ctx: dict, tag: str, step=None) -> None:
     """One more step of the same run under torch.profiler: the card's busy
     time against the host wall time of that step, and the kernels that take
     it.  The wall time of the run's last step, without the profiler, is
-    printed beside it."""
+    printed beside it.  ``step``: the run's step function (default: the
+    plain step with the run's grad_accum)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model
@@ -1467,9 +1515,11 @@ def profile_train_step(dev, ctx: dict, tag: str) -> None:
     from repro_torch.train.step import make_train_step
 
     cfg, run = ctx["cfg"], ctx["run"]
-    step = make_train_step(build_model(cfg), make_optimizer(cfg.optimizer),
-                           cosine_with_warmup(3e-4, 20, 21),
-                           grad_accum=run["grad_accum"])
+    if step is None:
+        step = make_train_step(build_model(cfg),
+                               make_optimizer(cfg.optimizer),
+                               cosine_with_warmup(3e-4, 20, 21),
+                               grad_accum=run["grad_accum"])
     batch = synthetic_batch(cfg, run, run["steps"], dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1829,12 +1879,13 @@ def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
 # -- phases 8 and 12: the simulator's train-step loop ---------------------------
 
 
-def simtrain_phase(dev, cfg, seq: int, batch: int, failures: list) -> dict:
+def simtrain_phase(dev, cfg, seq: int, batch: int, failures: list,
+                   db=None) -> dict:
     from repro_torch.launch.sim_accuracy import run
 
     row = run(cfg, seq=seq, batch=batch, steps=SIMTRAIN["steps"],
               profile_repeats=SIMTRAIN["repeats"], device=dev,
-              log_fn=lambda _: None)
+              log_fn=lambda _: None, db=db)
     if not (row["measured_s"] > 0 and math.isfinite(row["sim_offline_s"])
             and math.isfinite(row["sim_refined_s"])):
         failures.append(f"simtrain {row['name']}: measured "
@@ -1878,6 +1929,383 @@ def dense_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
                         failures)]
 
 
+# -- this slice: the "dots" remat, data and pipeline parallelism ---------------
+
+
+class CountOps(TorchDispatchMode):
+    """Counts the aten ops dispatched while active (the backward pass's
+    included)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts: dict = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[func] = self.counts.get(func, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def zero_lr(dev):
+    """A schedule of learning rate 0: the step computes its loss, gradients
+    and grad norm and leaves the parameters as they were, so several steps
+    read the same weights."""
+    zero = torch.zeros((), device=dev)
+    return lambda step: zero
+
+
+def remat_phase(dev, failures: list) -> None:
+    """``[remat-dots]``: llama3.2-1b at full width and depth, the
+    ``[dense-train]`` run's shapes.  One microbatch's loss and gradient under
+    "none", "full" and "dots" with the aten ops counted: the backward's
+    ``aten.mm`` under "dots" must equal "none"'s (the gradients' own: no
+    projection recomputed) and be fewer than "full"'s; then one step under
+    "full" and one under "dots" from the same state: loss and grad norm
+    within the bf16 tolerance, each step's time and peak memory."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config(DENSE_ARCH)
+    models = {p: build_model(dataclasses.replace(cfg, remat_policy=p))
+              for p in ("none", "full", "dots")}
+    opt = make_optimizer(cfg.optimizer)
+    state = init_state(models["dots"],
+                       torch.Generator(device=dev).manual_seed(DENSE["seed"]),
+                       opt)
+    mb = DENSE["batch"] // DENSE["grad_accum"]
+    micro = synthetic_batch(cfg, DENSE, 0, dev, rows=mb)
+    mm = torch.ops.aten.mm.default
+    counts = {}
+    for pol, model in models.items():
+        flat = leaves(state.params)
+        with CountOps() as fwd:
+            loss, _ = model.loss(state.params, micro)
+        with CountOps() as bwd:
+            grads = torch.autograd.grad(loss, flat)
+        counts[pol] = {"forward_mm": fwd.counts.get(mm, 0),
+                       "backward_mm": bwd.counts.get(mm, 0)}
+        del loss, grads
+        torch.cuda.empty_cache()
+    if not (counts["dots"]["backward_mm"] == counts["none"]["backward_mm"]
+            < counts["full"]["backward_mm"]):
+        failures.append(f"remat-dots: backward aten.mm counts {counts}: "
+                        "'dots' must recompute no projection")
+    batch = synthetic_batch(cfg, DENSE, 0, dev)
+    steps = {}
+    for pol in ("full", "dots"):
+        step = make_train_step(models[pol], opt, zero_lr(dev),
+                               grad_accum=DENSE["grad_accum"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        steps[pol] = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                      "step_ms": 1e3 * (time.perf_counter() - t0),
+                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    rel = {k: abs(steps["dots"][k] - steps["full"][k]) / abs(steps["full"][k])
+           for k in ("loss", "grad_norm")}
+    if max(rel.values()) > BF16_TOL or not all(
+            math.isfinite(v["loss"]) for v in steps.values()):
+        failures.append(f"remat-dots: full {steps['full']} vs dots "
+                        f"{steps['dots']} (relative {rel}, tolerance "
+                        f"{BF16_TOL})")
+    phase("remat-dots", arch=cfg.name, microbatch=[mb, DENSE["seq"]],
+          aten_mm=counts, steps=steps, rel_err=rel, tol=BF16_TOL,
+          batch=DENSE["batch"], grad_accum=DENSE["grad_accum"])
+
+
+def pp_train_phase(dev, failures: list) -> dict:
+    """``[pp-train]``: llama3.2-1b at full width and depth through
+    ``launch.train.train`` on 4 logical ranks of the one card, pp=2 x dp=2,
+    1F1B, int8 compression with error feedback: ``PP["steps"]`` steps (the
+    first a warm-up); per step the loss, host and device ms, tokens/s, peak
+    memory and launches, which must be 256 flash attentions and 520
+    RMSNorms; the launcher's own plan and parity lines; and the bytes the
+    executor moved (hops, int8 payloads)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.dist import mesh as M
+    from repro_torch.launch.train import train
+
+    cfg = get_config(DENSE_ARCH)
+    want = train_launches(cfg, grad_accum=PP["dp"] * PP["microbatches"])
+    want = {k: v for k, v in want.items() if k != "ssd_scan"}
+    counters = {k: c for k, c in kernel_counters().items()
+                if k in want}
+    steps, logs, seen = [], [], {k: 0 for k in counters}
+
+    def on_step(i, rec):
+        rec = dict(rec, step=i + 1, launches={
+            k: c.count - seen[k] for k, c in counters.items()},
+            tokens_per_s=PP["batch"] * PP["seq"] / (rec["host_ms"] / 1e3),
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        torch.cuda.reset_peak_memory_stats(dev)
+        seen.update({k: c.count for k, c in counters.items()})
+        steps.append(rec)
+        phase("pp-train-step", **rec)
+        if rec["launches"] != want:
+            failures.append(f"pp-train step {i + 1}: launches "
+                            f"{rec['launches']}, expected {want}")
+        if rec["peak_gb"] >= 80.0:
+            failures.append(f"pp-train step {i + 1}: {rec['peak_gb']} GB")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the main path: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    state, losses = train(
+        cfg, steps=PP["steps"], seq=PP["seq"], batch=PP["batch"],
+        pp=PP["pp"], pp_schedule=PP["schedule"],
+        microbatches=PP["microbatches"], compression=PP["compression"],
+        ranks=PP["dp"] * PP["pp"], seed=PP["seed"], device=dev,
+        on_step=on_step, log_fn=logs.append)
+    wall = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    traffic = dict(M.TRAFFIC)
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"pp-train: non-finite losses {losses}")
+    timed = [r["host_ms"] for r in steps[1:]]
+    med = sorted(timed)[len(timed) // 2]
+    phase("pp-train", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, vocab=cfg.vocab_size, **PP,
+          remat=cfg.remat_policy, losses=losses, launches=launches,
+          launches_per_step_expected=want, median_step_ms=med,
+          timed_step_ms=timed, tokens_per_s=PP["batch"] * PP["seq"] / med
+          * 1e3, max_memory_allocated_gb=max(r["peak_gb"] for r in steps),
+          traffic_bytes=traffic, launcher_lines=[
+              ln for ln in logs if ln.startswith(("[pp-", "[comm]"))],
+          seconds=wall,
+          note="4 logical ranks share one card and run one after another: "
+               "not a multi-card step time")
+    return {"cfg": cfg, "run": PP, "state": state, "median_s": med / 1e3,
+            "last_step_ms": steps[-1]["host_ms"], "traffic": traffic,
+            "launches": launches}
+
+
+def profile_pp_step(dev, ctx: dict) -> None:
+    """``[pp-train-profile]``: one more pp x dp step of the run under
+    torch.profiler (busy against wall, device time by kind and under the
+    step's ranges: ``train_step.pipeline``, ``.reduce``, ``.optimizer``)."""
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.pipeline import make_plan
+    from repro_torch.optim import cosine_with_warmup, make_optimizer
+    from repro_torch.train.step import make_pipeline_train_step
+
+    cfg = ctx["cfg"]
+    step = make_pipeline_train_step(
+        build_model(cfg), make_optimizer(cfg.optimizer),
+        cosine_with_warmup(3e-4, 20, 21),
+        make_mesh((PP["dp"], PP["pp"]), ("data", "stage"), dev),
+        make_plan(cfg, PP["pp"], PP["microbatches"],
+                  schedule=PP["schedule"]), compression=PP["compression"])
+    profile_train_step(dev, ctx, "pp-train-profile", step=step)
+
+
+def pp_check_phase(dev, ctx: dict, failures: list) -> None:
+    """``[pp-check]``: the pp=2 x dp=2 step without compression against the
+    unpipelined step (grad_accum 4) on the same weights and tokens (the
+    ``[dense-train]`` batch), for 1F1B, GPipe and interleaved 1F1B (2
+    virtual stages a rank): loss and grad norm within the bf16
+    tolerance.  The learning rate is 0, so every step reads the same
+    weights."""
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.pipeline import make_plan
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.step import make_pipeline_train_step, make_train_step
+
+    cfg = ctx["cfg"]
+    model = build_model(cfg)
+    opt = make_optimizer(cfg.optimizer)
+    state = ctx["state"]._replace(comp_state=None)
+    ctx["state"] = None
+    torch.cuda.empty_cache()
+    batch = synthetic_batch(cfg, DENSE, 0, dev)
+    step = make_train_step(model, opt, zero_lr(dev),
+                           grad_accum=DENSE["grad_accum"])
+    state, m = step(state, batch)
+    ref = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    mesh = make_mesh((PP["dp"], PP["pp"]), ("data", "stage"), dev)
+    rows = {}
+    for sched, v in (("1f1b", 1), ("gpipe", 1), ("interleaved_1f1b", 2)):
+        plan = make_plan(cfg, PP["pp"], PP["microbatches"], schedule=sched,
+                         vstages=v)
+        pstep = make_pipeline_train_step(model, opt, zero_lr(dev), mesh,
+                                         plan)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = pstep(state, batch)
+        got = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+        rows[plan.describe()] = dict(got, rel_err=rel, step_ms=1e3 * (
+            time.perf_counter() - t0))
+        if max(rel.values()) > BF16_TOL:
+            failures.append(f"pp-check {plan.describe()}: {got} against the "
+                            f"unpipelined {ref} (relative {rel}, tolerance "
+                            f"{BF16_TOL})")
+    phase("pp-check", unpipelined=ref, pipelined=rows, tol=BF16_TOL,
+          batch=DENSE["batch"], seq=DENSE["seq"])
+    ctx["state"] = state
+
+
+def pp_plan_phase(dev, ctx: dict, db, failures: list) -> dict:
+    """``[pp-plan]``, ``[pp-parity]``, ``[pp-one-card]``: one llama3.2-1b
+    layer profiled on the card (its forward and its backward at microbatch
+    1 x 2048, into the ProfileDB the dense ``simtrain`` row built), then the
+    ``[pp-train]`` strategy's ``model_pipeline_graph`` priced from that DB
+    on 4 H100 SXM (data-sheet NVLink for the collectives) and simulated;
+    the simulated boundary and all-reduce bytes held exactly against the
+    executor's twins and the bytes ``[pp-train]`` moved; then the same
+    schedule priced with every stage and rank on one card, against the
+    measured median (a finding, not a gate)."""
+    from repro_torch.core.estimator import OpTimeEstimator, dist_comm_bytes
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.profiler import OfflineProfiler
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.strategy import model_pipeline_graph
+    from repro_torch.dist.compress import compressed_psum_bytes
+    from repro_torch.models import build_model
+    from repro_torch.models.pipeline import make_plan, stage_param_trees
+    from repro_torch.tree import leaves
+
+    cfg = ctx["cfg"]
+    prof = OfflineProfiler(db, platform=H100_SXM.name, repeats=5, device=dev)
+    layers_n = [n for n in (1, 2, 4, 8, 16) if cfg.num_layers % n == 0]
+    t0 = time.perf_counter()
+    layer = {mb: prof.profile_layer(cfg, mb, PP["seq"], layer_counts=layers_n)
+             for mb in AUTOTUNE["micro_batches"]}
+    profile_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    est = OpTimeEstimator(H100_SXM, db)
+    plan = make_plan(cfg, PP["pp"], PP["microbatches"],
+                     schedule=PP["schedule"])
+    mbs = PP["batch"] // (PP["dp"] * PP["microbatches"])
+    params, _ = build_model(cfg).abstract_params()
+    graph = model_pipeline_graph(
+        cfg, plan.strategy(dp=PP["dp"], compression=PP["compression"]),
+        mbs, PP["seq"], params=params)
+    res = simulate(graph, est.duration, record_events=False)
+    phase("pp-plan", strategy=plan.strategy(
+        dp=PP["dp"], compression=PP["compression"]).describe(),
+          simulated=True, platform=H100_SXM.name, chips=PP["dp"] * PP["pp"],
+          simulated_step_ms=1e3 * res.makespan,
+          simulated_ms_by_kind={k: 1e3 * v
+                                for k, v in res.time_by_kind.items()},
+          layer_profile_ms={mb: {k[:-2] + "_ms": 1e3 * v
+                                 for k, v in r.items()}
+                            for mb, r in layer.items()},
+          profile_seconds=profile_s, estimator_stats=dict(est.stats))
+
+    # byte parity: simulated == executor twin == what [pp-train] moved
+    by = {n.name: n for n in graph.nodes}
+    sim_hops = sum(dist_comm_bytes(n) for n in graph.nodes
+                   if n.kind == "collective-permute")
+    twin_hops = plan.boundary_bytes_per_step(mbs, PP["seq"])
+    passes = PP["steps"] * PP["dp"]
+    exec_hops = ctx["traffic"].get("ppermute", 0) / passes
+    sim_ar = [dist_comm_bytes(by[f"gradAR{s}"]) for s in range(PP["pp"])]
+    trees = stage_param_trees(plan, params)
+    twin_ar = [compressed_psum_bytes(t, PP["compression"]) for t in trees]
+    exec_ar = ctx["traffic"].get("psum_int8", 0) / passes
+    # the executor reduces the tied table's two gradient paths once, merged
+    # (the reference's numerics); the twin prices each stage's own copy
+    tied = (compressed_psum_bytes({"embed": params["embed"]},
+                                  PP["compression"])
+            if cfg.tie_embeddings else 0.0)
+    ok = (sim_hops == twin_hops == exec_hops and sim_ar == twin_ar
+          and exec_ar == sum(sim_ar) - tied)
+    phase("pp-parity", boundary_bytes={"sim": sim_hops, "twin": twin_hops,
+                                       "executed": exec_hops},
+          allreduce_bytes={"sim_per_stage": sim_ar, "twin_per_stage": twin_ar,
+                           "executed_per_data_rank": exec_ar,
+                           "tied_table_reduced_once": tied},
+          ok=ok)
+    if not ok:
+        failures.append("pp-parity: simulated and executed bytes differ")
+
+    # every stage and rank on one card: the ranks run one after another, so
+    # the step is dp passes of the pipeline with its stages serialised, the
+    # hops device copies, the int8 reduction and AdamW memory passes
+    chip = H100_SXM.chip
+    one = 0.0
+    for n in graph.nodes:
+        if n.kind == "collective-permute":
+            one += 2 * dist_comm_bytes(n) / chip.hbm_bw
+        elif not n.is_collective:
+            one += est.duration(n)
+    n_params = sum(int(math.prod(t.shape)) for t in leaves(params))
+    # per data rank and fp32 element: read the gradient and the residual,
+    # write the residual and the payload, read the payload into the sum;
+    # AdamW: read p, g, m, v, write p, m, v
+    reduce_s = PP["dp"] * 5 * 4 * n_params / chip.hbm_bw
+    adamw_s = 7 * 4 * n_params / chip.hbm_bw
+    one_card = PP["dp"] * one + reduce_s + adamw_s
+    measured = ctx["median_s"]
+    phase("pp-one-card", simulated=True, simulated_step_s=one_card,
+          pipeline_pass_s=one, reduce_s=reduce_s, adamw_s=adamw_s,
+          measured_median_s=measured,
+          err=(one_card - measured) / measured,
+          note="the pipeline graph holds the layers and the collectives; "
+               "the embedding and the fp32 head/loss are not in it")
+    return {"db": db, "est": est}
+
+
+def autotune_phase(ctx: dict, failures: list) -> None:
+    """``[autotune]``: the (dp x pp x microbatch x schedule) candidates for
+    llama3.2-1b on 8 H100 SXM at a global batch of 8 x 2048, ranked by
+    simulated step from the card-profiled layer cost (every chunk priced
+    from the DB ``pp_plan_phase`` filled): the top 5, simulated."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.autotuner import Autotuner
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.models.pipeline import model_layer_cost
+
+    cfg = get_config(DENSE_ARCH)
+    db, est = ctx["db"], ctx["est"]
+    tuner = Autotuner(
+        cfg, chips=AUTOTUNE["chips"], global_batch=PP["batch"],
+        seq=PP["seq"], platform=H100_SXM, estimator=est,
+        layer_cost=lambda mb, tp: model_layer_cost(
+            cfg, mb, PP["seq"], tp, db=db, platform=H100_SXM.name))
+    t0 = time.perf_counter()
+    before = dict(est.stats)
+    res = tuner.search(tp_options=(1,), microbatch_options=AUTOTUNE[
+        "micro_batches"])
+    priced = {k: est.stats[k] - before.get(k, 0) for k in est.stats}
+    if not res or priced.get("learned", 0) or priced.get("analytic", 0):
+        failures.append(f"autotune: {len(res)} results, pricing {priced} "
+                        "(every chunk must come from the DB)")
+    phase("autotune", simulated=True, chips=AUTOTUNE["chips"],
+          platform=H100_SXM.name, global_batch=PP["batch"], seq=PP["seq"],
+          candidates=len(res), prune_stats=tuner.prune_stats,
+          pricing=priced, seconds=time.perf_counter() - t0,
+          top5=[{"strategy": r.strategy.describe(),
+                 "simulated_step_ms": 1e3 * r.makespan_s,
+                 "bubble": r.bubble_fraction, "comm": r.comm_fraction}
+                for r in res[:5]])
+
+
+def pp_kernel_table(dev, gen, platform, launches, failures: list) -> list:
+    """The kernels at the pipelined step's shapes (microbatch 1 x 2048):
+    RMSNorm and flash attention, launches from ``[pp-train]``."""
+    from repro_torch.configs.base import get_config
+
+    cfg, chip = get_config(DENSE_ARCH), platform.chip
+    steps = PP["steps"]
+    return [
+        rmsnorm_row(dev, gen, chip, "rmsnorm@pp-train",
+                    (1, PP["seq"], cfg.d_model), cfg.norm_eps,
+                    launches["rmsnorm"], launches["rmsnorm"] / steps,
+                    failures),
+        flash_train_row(dev, gen, chip, "pp-train",
+                        launches["flash_attention"],
+                        launches["flash_attention"] / steps, failures)]
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -1908,9 +2336,13 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels",),
-                    help="build, check and time the kernels alone (no "
-                         "serve or train run, no launch counts, no ok line)")
+    ap.add_argument("--only", choices=("kernels", "pp"),
+                    help="kernels: build, check and time the kernels alone "
+                         "(no serve or train run, no launch counts); pp: "
+                         "build and check the kernels, then this slice's "
+                         "phases alone (remat-dots, pp-*, autotune; the "
+                         "layer profile into a fresh ProfileDB).  Neither "
+                         "prints the ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -1952,6 +2384,24 @@ def main() -> int:
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
+    if args.only == "pp":
+        from repro_torch.core.database import ProfileDB
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        remat_phase(dev, failures)
+        pctx = pp_train_phase(dev, failures)
+        profile_pp_step(dev, pctx)
+        pp_check_phase(dev, pctx, failures)
+        pctx["state"] = None
+        torch.cuda.empty_cache()
+        autotune_phase(pp_plan_phase(dev, pctx, ProfileDB(), failures),
+                       failures)
+        print(json.dumps({"kernels": pp_kernel_table(
+            dev, gen, platform, pctx["launches"], failures)}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
     from repro_torch.configs.base import get_config
     from repro_torch.launch.sim_accuracy import smoke_config
 
@@ -1985,8 +2435,12 @@ def main() -> int:
         "platform": platform, "dense": dense_launches,
         "moe": moe_launches}, failures)
     torch.cuda.empty_cache()
+    from repro_torch.core.database import ProfileDB
+
+    dense_db = ProfileDB()      # the card's profiles, kept for [pp-plan]
     simtrain_phase(dev, dense_cfg, DENSE["seq"],
-                   DENSE["batch"] // DENSE["grad_accum"], failures)
+                   DENSE["batch"] // DENSE["grad_accum"], failures,
+                   db=dense_db)
     simtrain_phase(dev, smoke_config(MOE_ARCH), MOE["seq"], MOE["batch"],
                    failures)
 
@@ -2014,6 +2468,19 @@ def main() -> int:
         "platform": platform, "ptxas": ptxas, "jamba": jamba_launches,
         "encdec": encdec_launches, "encdec_decode": encdec_decode_launches},
         failures)
+
+    # this slice: the "dots" remat, data and pipeline parallelism
+    remat_phase(dev, failures)
+    torch.cuda.empty_cache()
+    pctx = pp_train_phase(dev, failures)
+    profile_pp_step(dev, pctx)
+    torch.cuda.empty_cache()
+    pp_check_phase(dev, pctx, failures)
+    pctx["state"] = None
+    torch.cuda.empty_cache()
+    autotune_phase(pp_plan_phase(dev, pctx, dense_db, failures), failures)
+    torch.cuda.empty_cache()
+    table += pp_kernel_table(dev, gen, platform, pctx["launches"], failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

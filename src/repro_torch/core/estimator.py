@@ -153,29 +153,49 @@ _MODEL_SOURCES = {
 }
 
 def dist_comm_bytes(node: OpNode) -> float:
-    """Default comm-volume hook: the node's raw payload bytes.
+    """Default comm-volume hook: the per-device payload bytes a collective
+    node moves, resolved through the distributed executors' byte twins.
 
-    Graph producers may annotate a collective with ``compression``,
-    ``moe_a2a`` or ``pp_hop`` metadata, which the JAX package resolves
-    through the distributed executors' byte twins.  Those executors are not
-    ported yet, so such a node raises instead of being priced at its raw
-    payload.
+    Graph producers annotate rather than pre-bake: ``comm_bytes`` stays the
+    raw dense payload and ``node.meta`` carries the strategy, as in the JAX
+    package — ``{"compression": scheme, "grad_elems": n, "n_tensors": t}``
+    (plus the exact ``"grad_leaf_elems"`` when the gradient tree is known,
+    see ``core.strategy.grad_allreduce_node_meta``) on a compressed
+    gradient all-reduce, priced through ``dist.compress``; ``{"pp_hop":
+    {"shape", "dtype"}}`` on a model-derived pipeline boundary send, priced
+    through ``dist.pp.boundary_bytes``.  Unannotated nodes pass through.
+    An expert-parallel all-to-all (``moe_a2a``) raises: its executor is not
+    ported (ROADMAP.md, A6 part 2).
     """
     scheme = node.meta.get("compression")
-    annotated = [
-        key for key, on in (
-            ("compression", scheme and scheme != "none"),
-            ("moe_a2a", node.meta.get("moe_a2a")),
-            ("pp_hop", node.meta.get("pp_hop")),
-        ) if on
-    ]
-    if annotated:
-        # the byte twins of these annotations live in the distributed
-        # executors, which the port has not taken over yet
-        raise NotImplementedError(
-            f"collective node {node.name!r} carries {annotated[0]!r}: the "
-            "distributed byte twins are not ported yet (ROADMAP, distributed)"
+    if scheme and scheme != "none":
+        from repro_torch.dist.compress import (
+            compressed_allreduce_bytes,
+            tree_allreduce_bytes,
         )
+
+        # exact per-leaf accounting when the producer knows the gradient
+        # tree (int8 ships one f32 scale per tensor; topk rounds the kept
+        # count per leaf) — matches ``compressed_psum_bytes`` leaf for leaf
+        leaf_elems = node.meta.get("grad_leaf_elems")
+        if leaf_elems:
+            return tree_allreduce_bytes(leaf_elems, scheme=scheme)
+        elems = int(node.meta.get("grad_elems") or node.comm_bytes // 4)
+        n_tensors = int(node.meta.get("n_tensors", 1))
+        return compressed_allreduce_bytes(
+            elems, n_tensors=n_tensors, scheme=scheme
+        )
+    if node.meta.get("moe_a2a"):
+        raise NotImplementedError(
+            f"collective node {node.name!r} carries 'moe_a2a': the "
+            "expert-parallel all-to-all and its byte twin are not ported "
+            "(ROADMAP.md, A6 part 2)"
+        )
+    hop = node.meta.get("pp_hop")
+    if hop:
+        from repro_torch.dist.pp import boundary_bytes
+
+        return boundary_bytes(hop["shape"], hop["dtype"])
     return node.comm_bytes
 
 

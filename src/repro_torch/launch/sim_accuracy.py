@@ -36,7 +36,7 @@ d_model 256, 8/4 heads of 32, vocab 2048, fp32, no remat; the MoE keeps the
 smoke config's 4 experts, top-2; seq 128, batch 8); without it, the model
 at full width on one microbatch of ``chip_smoke.py``'s train cell.  The
 MoE model runs only reduced: qwen3-moe-235b-a22b's training state (~3.8 TB)
-needs expert parallelism (ROADMAP.md, 'Distributed').
+needs expert parallelism (ROADMAP.md, A6 part 2).
 """
 from __future__ import annotations
 
@@ -139,13 +139,16 @@ def busy_seconds(events) -> float:
 
 
 def run(cfg, *, seq: int, batch: int, steps: int = 12,
-        profile_repeats: int = 5, device="cuda", log_fn=print) -> dict:
+        profile_repeats: int = 5, device="cuda", log_fn=print,
+        db=None) -> dict:
     """One Table-2 row for ``cfg``; returns it as a dict.
 
     The profiles are taken in fp32, as in the JAX benchmark, over the grids
     of :func:`profile_grids`; reductions and memory ops take every vector
     size but the largest, as there.  ``steps`` (at least ``MIN_STEPS``)
-    real steps are timed, one by one."""
+    real steps are timed, one by one.  ``db``: the ProfileDB to profile
+    into (kept by the caller, e.g. to price a pipeline plan from the same
+    card's profiles); a fresh one by default."""
     from repro_torch.core.database import ProfileDB
     from repro_torch.core.estimator import OpTimeEstimator
     from repro_torch.core.fx_graph import KERNEL_COSTS, step_summary
@@ -179,7 +182,7 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
 
     # 2. offline op profiles, over grids that reach the step's sizes
     t0 = time.perf_counter()
-    db = ProfileDB()
+    db = ProfileDB() if db is None else db
     prof = OfflineProfiler(db, repeats=profile_repeats, device=dev)
     matmul_sizes, vector_sizes = profile_grids(graph, prof.dtype.itemsize)
     prof.profile_matmul(sizes=matmul_sizes, values_per_arg=6)
@@ -300,7 +303,7 @@ def main(argv=None) -> None:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "moe" and not args.smoke:
         ap.error(f"{args.arch} at full width needs expert parallelism "
-                 "(ROADMAP.md, 'Distributed'); pass --smoke")
+                 "(ROADMAP.md, A6 part 2); pass --smoke")
     # the JAX benchmark's cell with --smoke; one microbatch of the train
     # cell of chip_smoke.py without
     row = run(cfg, seq=128 if args.smoke else 2048,

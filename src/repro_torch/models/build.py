@@ -50,6 +50,26 @@ class Model:
     init_cache: Callable  # (batch, max_len, dtype, device) -> cache
     cache_axes: Callable  # () -> logical-axes tree matching init_cache
 
+    def abstract_params(self, seed: int = 0):
+        """``(tree, None)``: the parameter tree's shapes and dtypes
+        (:class:`ShapeDtype` leaves) without allocating it, ``init`` run on
+        fake tensors.  The JAX package's ``abstract_params`` returns the
+        logical-axes tree second; the port has none."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = self.init(torch.Generator().manual_seed(seed))
+        return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
+                        fake), None
+
+
+@dataclass(frozen=True)
+class ShapeDtype:
+    """A leaf's shape and dtype (the counterpart of
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
 
 def build_model(cfg: ArchConfig) -> Model:
     mod = _MODULES.get(cfg.family)

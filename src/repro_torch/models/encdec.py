@@ -77,8 +77,7 @@ def _positions(b: int, s: int, device):
 def encode(params, frames, cfg: ArchConfig):
     """frames: (B, S_src, frontend_dim) -> (B, S_src, D) memory."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = torch.einsum("bsf,fd->bsd", frames.to(cdt),
-                     params["frontend"].to(cdt))
+    h = L.proj(frames.to(cdt), params["frontend"].to(cdt))
     positions = _positions(h.shape[0], h.shape[1], h.device)
 
     def body(hh, lp):

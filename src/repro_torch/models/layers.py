@@ -20,6 +20,9 @@ ops run their plain versions.
 from __future__ import annotations
 
 import math
+import threading
+from collections import deque
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -36,6 +39,82 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dtype_of(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[str(name)]
+
+
+class _DotsState(threading.local):
+    """The "dots" remat's state on this thread: while a layer's forward runs
+    under it, ``store`` collects the projections' outputs; while its
+    recompute runs, ``replay`` hands them back in the same order."""
+    store: Optional[deque] = None
+    replay: bool = False
+
+
+_DOTS = _DotsState()
+
+
+class _SavedMM(torch.autograd.Function):
+    """A projection replayed from its saved output: no matmul in the
+    forward; the backward is the matmul's own (dx = g wᵀ, dw = xᵀ g)."""
+
+    @staticmethod
+    def forward(ctx, x2, w2, out):
+        # what aten.mm's own node saves, in its order (the checkpoint holds
+        # the recompute's saved tensors to the forward's): w for dx, x for dw
+        dx, dw = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(*([w2] if dx else []), *([x2] if dw else []))
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = list(ctx.saved_tensors)
+        dx = g.mm(saved.pop(0).t()) if ctx.needs_input_grad[0] else None
+        dw = saved.pop(0).t().mm(g) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+@contextmanager
+def _dots(store: deque, replay: bool):
+    prev = _DOTS.store, _DOTS.replay
+    _DOTS.store, _DOTS.replay = store, replay
+    try:
+        yield
+    finally:
+        _DOTS.store, _DOTS.replay = prev
+
+
+def dots_saved(fn):
+    """``fn`` for one "dots" checkpoint (``transformer._remat``): its first
+    call, the checkpoint's forward, keeps every :func:`proj` output; its
+    next, the recompute, reuses them and recomputes everything else."""
+    store: deque = deque()
+    calls = [0]
+
+    def body(*args):
+        replay = calls[0] > 0
+        calls[0] += 1
+        with _dots(store, replay):
+            return fn(*args)
+
+    return body
+
+
+def proj(x, w, n: int = 1):
+    """``x`` contracted over its last ``n`` dims with the first ``n`` dims
+    of ``w``, as one 2-D matmul (``aten.mm``).
+
+    Every projection without a batch dimension goes through here (the JAX
+    package's ``bsd,dhk->bshk``, ``bqhk,hkd->bqd``, ``bsd,df->bsf``): these
+    are the dots whose outputs JAX's ``dots_with_no_batch_dims_saveable``
+    saves, and the "dots" remat saves them here (:func:`dots_saved`)."""
+    k = math.prod(w.shape[:n])
+    x2, w2 = x.reshape(-1, k), w.reshape(k, -1)
+    if _DOTS.replay:
+        out = _SavedMM.apply(x2, w2, _DOTS.store.popleft())
+    else:
+        out = torch.mm(x2, w2)
+        if _DOTS.store is not None:
+            _DOTS.store.append(out.detach())
+    return out.reshape(*x.shape[:x.dim() - n], *w.shape[n:])
 
 
 def _init_dense(gen: torch.Generator, shape, scale_dim: int, dtype):
@@ -107,9 +186,9 @@ def init_attention(gen: torch.Generator, cfg) -> dict:
 
 def _project_qkv(p, x, cfg, positions):
     cdt = dtype_of(cfg.compute_dtype)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    q = proj(x, p["wq"].to(cdt))
+    k = proj(x, p["wk"].to(cdt))
+    v = proj(x, p["wv"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
@@ -159,21 +238,21 @@ def attention(p, x, cfg, *, positions, mask=None, cross_kv=None,
     if cross_kv is None:
         q, k, v = _project_qkv(p, x, cfg, positions)
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+        q = proj(x, p["wq"].to(cdt))
         if "bq" in p:
             q = q + p["bq"].to(cdt)
         k, v = cross_kv
         bidirectional = True
     out = _sdpa(q, k, v, cfg, causal=not bidirectional)
-    return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(cdt))
+    return proj(out, p["wo"].to(cdt), 2)
 
 
 def cross_kv_from_memory(p, memory, cfg):
     """Project the encoder memory to (k, v) once (reused across decode
     steps); no RoPE, as in the JAX package."""
     cdt = dtype_of(cfg.compute_dtype)
-    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"].to(cdt))
+    k = proj(memory, p["wk"].to(cdt))
+    v = proj(memory, p["wv"].to(cdt))
     if "bk" in p:
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
@@ -226,7 +305,7 @@ def attention_prefill(p, x, cfg, *, positions, cache):
     out = _sdpa(q, k, v, cfg)
     cdt = dtype_of(cfg.compute_dtype)
     _cache_write(cache, k, v, 0)
-    return torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(cdt)), cache
+    return proj(out, p["wo"].to(cdt), 2), cache
 
 
 def attention_decode(p, x, cfg, *, cache, cache_len: int):
@@ -243,7 +322,7 @@ def attention_decode(p, x, cfg, *, cache, cache_len: int):
     _cache_write(cache, k, v, cache_len)
     out = _sdpa(q, cache["k"].to(cdt), cache["v"].to(cdt), cfg,
                 q_offset=positions[:, 0])
-    y = torch.einsum("bqhk,hkd->bqd", out, p["wo"].to(cdt))
+    y = proj(out, p["wo"].to(cdt), 2)
     return y, cache
 
 
@@ -262,10 +341,10 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
 
 def mlp(p, x, compute_dtype):
     cdt = dtype_of(compute_dtype)
-    g = torch.einsum("bsd,df->bsf", x, p["wg"].to(cdt))
-    u = torch.einsum("bsd,df->bsf", x, p["wu"].to(cdt))
+    g = proj(x, p["wg"].to(cdt))
+    u = proj(x, p["wu"].to(cdt))
     h = F.silu(g) * u
-    return torch.einsum("bsf,fd->bsd", h, p["wd"].to(cdt))
+    return proj(h, p["wd"].to(cdt))
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.layers import _init_dense, dtype_of
+from repro_torch.models.layers import _init_dense, dtype_of, proj
 
 
 def mamba_dims(cfg: ArchConfig):
@@ -78,11 +78,11 @@ def _causal_depthwise_conv(x, kernel, tail=None):
 def _project(p, x, cfg: ArchConfig):
     """x: (B,S,D) -> z, xh, B_, C_, dt  (pre-conv, pre-activation)."""
     cdt = dtype_of(cfg.compute_dtype)
-    z = torch.einsum("bsd,dhk->bshk", x, p["wz"].to(cdt))
-    xh = torch.einsum("bsd,dhk->bshk", x, p["wx"].to(cdt))
-    B_ = torch.einsum("bsd,dgn->bsgn", x, p["wB"].to(cdt))
-    C_ = torch.einsum("bsd,dgn->bsgn", x, p["wC"].to(cdt))
-    dt = torch.einsum("bsd,dh->bsh", x.float(), p["wdt"].float())
+    z = proj(x, p["wz"].to(cdt))
+    xh = proj(x, p["wx"].to(cdt))
+    B_ = proj(x, p["wB"].to(cdt))
+    C_ = proj(x, p["wC"].to(cdt))
+    dt = proj(x.float(), p["wdt"].float())
     dt = F.softplus(dt + p["dt_bias"])  # (B,S,nh) fp32, >= 0
     return z, xh, B_, C_, dt
 
@@ -154,7 +154,7 @@ def mamba_forward(p, x, cfg: ArchConfig, *, conv_tails=None, init_state=None):
     y = y + xh.float() * p["D_skip"][None, None, :, None]
     y = y.to(cdt) * F.silu(z)
     y = _gated_norm(y, p["norm"], cfg)
-    out = torch.einsum("bshp,hpd->bsd", y, p["wo"].to(cdt))
+    out = proj(y, p["wo"].to(cdt), 2)
     cache = {
         "conv_x": tx,
         "conv_B": tb,
@@ -221,5 +221,5 @@ def mamba_step(p, x, cfg: ArchConfig, cache):
     y = y + xh1.float() * p["D_skip"][None, :, None]
     y = y[:, None].to(cdt) * F.silu(z)
     y = _gated_norm(y, p["norm"], cfg)
-    out = torch.einsum("bshp,hpd->bsd", y, p["wo"].to(cdt))
+    out = proj(y, p["wo"].to(cdt), 2)
     return out, {"conv_x": tx, "conv_B": tb, "conv_C": tc, "state": st}

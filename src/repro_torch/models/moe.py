@@ -9,9 +9,9 @@ counted token-major and choice-minor across the group; a choice past the
 expert's capacity is dropped.  Everything is differentiable (one-hot
 dispatch, no sorts), so one path serves training and serving.
 
-The explicit all-to-all expert parallelism (``impl="ep_a2a"``) needs a mesh,
-and the port has none yet (ROADMAP.md, 'Distributed'): it takes the einsum
-path, as the JAX package does when no mesh context is set.
+The explicit all-to-all expert parallelism (``impl="ep_a2a"``) is not
+ported (ROADMAP.md, A6 part 2): it takes the einsum path, as the JAX package
+does when no mesh context is set.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.layers import _init_dense, dtype_of
+from repro_torch.models.layers import _init_dense, dtype_of, proj
 
 
 def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
@@ -55,7 +55,7 @@ def route(p, xg: torch.Tensor, moe: MoEConfig):
     """fp32 routing of grouped tokens xg (g, group, D): the router's
     probabilities (g, group, E), the renormalised gates and the chosen
     experts (g, group, k), each token's top choice first."""
-    logits = torch.einsum("gsd,de->gse", xg.float(), p["router"])
+    logits = proj(xg.float(), p["router"])
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, moe.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),

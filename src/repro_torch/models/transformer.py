@@ -97,18 +97,26 @@ def unbind_layers(blocks: dict) -> list[dict]:
 def _remat(fn, cfg: ArchConfig):
     """Per-layer rematerialization, the JAX package's ``_remat``.
 
-    ``"none"`` saves every activation.  ``"full"`` and ``"dots"`` run the
-    layer under ``torch.utils.checkpoint``: its activations are dropped after
-    the forward pass and recomputed in the backward.  JAX's ``"dots"`` policy
-    keeps the matmul outputs of the layer and recomputes the rest; the port
-    recomputes the whole layer (same numbers; more time, less memory), and
-    selective saving is a ROADMAP item.
+    ``"none"`` saves every activation.  ``"full"`` runs the layer under
+    ``torch.utils.checkpoint``: its activations are dropped after the
+    forward pass and the whole layer is recomputed in the backward.
+    ``"dots"`` follows JAX's ``dots_with_no_batch_dims_saveable``: the
+    checkpoint keeps the outputs of the layer's projections (every
+    ``layers.proj``, one ``aten.mm`` each) and its recompute reuses them,
+    recomputing everything else: batched matmuls, attention, the norms,
+    elementwise ops and the SSD scan.  The projections save themselves
+    (``layers.dots_saved``) rather than through a dispatch mode over every
+    op (``create_selective_checkpoint_contexts``): such a mode costs host
+    time on each op of the forward and the recompute, and caches every op
+    while ``make_fx`` traces, so the traced step would lose its recompute.
     """
     if cfg.remat_policy == "none":
         return fn
+    dots = cfg.remat_policy == "dots"
 
     def run(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(L.dots_saved(fn) if dots else fn, *args,
+                          use_reentrant=False)
 
     return run
 
@@ -157,10 +165,9 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     b = h.shape[0]
     if cfg.num_patches:
         pr = params["projector"]
-        pe = torch.einsum("bpf,fd->bpd", batch["patches"].to(cdt),
-                          pr["w1"].to(cdt))
+        pe = L.proj(batch["patches"].to(cdt), pr["w1"].to(cdt))
         pe = F.gelu(pe, approximate="tanh")   # jax.nn.gelu's default
-        pe = torch.einsum("bpd,de->bpe", pe, pr["w2"].to(cdt))
+        pe = L.proj(pe, pr["w2"].to(cdt))
         h = torch.cat([pe, h], dim=1)
     s = h.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(

@@ -175,10 +175,14 @@ def test_unported_estimator_stages_raise():
     _, _, db, _ = _port_side()
     # the learned stage is ported (tests/test_torch_simtrain.py): it builds
     OpTimeEstimator(port_hw.CPU_HOST, db=db, use_learned=True)
-    # the distributed byte twins are not
+    # the compressed all-reduce's byte twin is ported: it prices the int8
+    # payload; the expert-parallel all-to-all's is not (ROADMAP A6 part 2)
     est = OpTimeEstimator(port_hw.CPU_HOST, db=None, use_learned=False)
     g = port_graph.DataflowGraph("g")
     node = g.add("ar", "all-reduce", comm_bytes=1e6, group_size=2,
                  link_kind="ici", meta={"compression": "int8"})
-    with pytest.raises(NotImplementedError, match="distributed"):
-        est.duration(node)
+    assert est.duration(node) > 0
+    a2a = g.add("a2a", "all-to-all", comm_bytes=1e6, group_size=2,
+                link_kind="ici", meta={"moe_a2a": {"num_experts": 4}})
+    with pytest.raises(NotImplementedError, match="A6 part 2"):
+        est.duration(a2a)

@@ -209,11 +209,19 @@ def test_eval_and_timed_step(mamba_pair):
 
 
 def test_distributed_and_compressed_steps_raise(mamba_pair):
+    # compressed and data-parallel steps are ported
+    # (tests/test_torch_train_dist.py); what stays refused: a scheme that
+    # is byte-accounting-only, a mesh axis without its mesh, and the
+    # pipeline for the ssm family (as in the JAX package)
+    from repro_torch.models.pipeline import make_plan
+
     _, tmodel = mamba_pair
     topt = optim.adamw()
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        init_state(tmodel, torch.Generator(), topt, compression="int8")
-    with pytest.raises(NotImplementedError, match="Distributed"):
+    with pytest.raises(ValueError, match="int8"):
+        init_state(tmodel, torch.Generator(), topt, compression="topk:0.1")
+    with pytest.raises(ValueError, match="mesh"):
         make_train_step(tmodel, topt, optim.cosine_with_warmup(1, 1, 2),
                         axis_name="data")
+    with pytest.raises(ValueError, match="family"):
+        make_plan(tmodel.cfg, 2, 2)
 
