@@ -14,7 +14,7 @@ The torch port's copy of the JAX package's ``core/autotuner.py``, with two
 additions: the default platform is the port's ``H100_SXM`` (the reference's
 is ``TPU_V5E``), and a tuner may take its per-layer cost from the card
 (``layer_cost``: e.g. ``models.pipeline.model_layer_cost`` over a ProfileDB
-that ``core.profiler.OfflineProfiler.profile_layer`` filled), with the
+that ``models.pipeline.profile_layer`` filled), with the
 tensor-parallel widths it enumerates narrowed to those that cost covers.
 """
 from __future__ import annotations

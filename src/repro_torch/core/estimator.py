@@ -9,6 +9,8 @@ family, trained on all profiled points of the platform; it is trained with
 torch on the CPU, from initial weights drawn with numpy.
 
 Fallback chain per compute node:
+  0. a pipeline chunk of n layers whose layer was measured on the card:
+     n times the DB's ``layer_fwd``/``layer_bwd`` entry
   1. exact DB hit for (op_family, args)            — paper's database query
   2. learned regression on (flops, bytes)          — paper's NN estimator
   3. analytic roofline max(flops/peak, bytes/bw)   — spec-sheet platforms
@@ -279,6 +281,9 @@ class OpTimeEstimator:
                     if m is not None:
                         self.models[key] = m
         self.stats = {"db": 0, "learned": 0, "analytic": 0, "newop": 0}
+        # the chunks priced from a measured layer (counted apart from the
+        # reference's stats: a scaled measurement, not an exact DB hit)
+        self.layer_chunks = 0
 
     # -- per-node ----------------------------------------------------------------
 
@@ -293,6 +298,15 @@ class OpTimeEstimator:
         # 1. exact DB hit — either op-family args or a (flops, bytes)
         # signature previously measured by the new-op profiler
         if self.db is not None:
+            # a pipeline chunk of a layer measured on the card
+            # (models.pipeline.profile_layer): n times the layer's time
+            lp = node.meta.get("layer_profile")
+            if lp is not None:
+                e = self.db.lookup(self.platform.name, f"layer_{node.kind}",
+                                   lp)
+                if e is not None:
+                    self.layer_chunks += 1
+                    return node.meta["layers"] * e.mean_s
             fam = _FAMILY.get(node.kind)
             args = node.meta.get("db_args")
             if fam is not None and args:

@@ -266,80 +266,6 @@ class OfflineProfiler:
             count += 2
         return count
 
-    def profile_layer(self, cfg, micro_batch: int, seq: int,
-                      layer_counts: Iterable[int] = (1,)) -> dict:
-        """Time one decoder block of ``cfg`` (random seeded weights; bf16
-        or the config's compute dtype; under the config's remat) on a
-        (micro_batch, seq) activation: its forward with the graph kept, as
-        the pipeline executor's F step runs it, and its backward, as a B
-        step runs it (remat recompute included).
-
-        Records the two means under ``layer_fwd``/``layer_bwd`` keyed by
-        (arch, micro_batch, seq, tp=1), and — the entries the estimator
-        prices pipeline graphs from — under the ``fwd``/``bwd`` node kinds
-        keyed by the (flops, bytes) signature a chunk of ``n`` layers has
-        in ``core.strategy.pipeline_graph`` for each ``n`` of
-        ``layer_counts``, at ``n`` times the layer's time.  Returns the
-        layer's ``{"fwd_s", "bwd_s", "fwd_std_s", "bwd_std_s"}``.
-        """
-        from repro_torch.core.graph import OpNode
-        from repro_torch.models import layers as L
-        from repro_torch.models import pipeline as P
-        from repro_torch.models import transformer
-        from repro_torch.tree import leaves, tree_map
-
-        gen = torch.Generator(device=self.device).manual_seed(0)
-        block = tree_map(lambda t: t.requires_grad_(),
-                         transformer.init_block(gen, cfg))
-        _first, layer_fn, _loss = P.stage_fns(cfg, 1)
-        cdt = L.dtype_of(cfg.compute_dtype)
-        x = torch.randn((micro_batch, seq, cfg.d_model), generator=gen,
-                        device=self.device).to(cdt).requires_grad_()
-        dy = torch.randn((micro_batch, seq, cfg.d_model), generator=gen,
-                         device=self.device).to(cdt)
-        fwd, bwd = [], []
-        for i in range(max(self.repeats, 1) + 2):
-            synchronize(self.device)
-            t0 = time.perf_counter()
-            y, _aux = layer_fn(block, x)
-            synchronize(self.device)
-            t1 = time.perf_counter()
-            torch.autograd.backward([y], [dy])
-            synchronize(self.device)
-            t2 = time.perf_counter()
-            for t in [x] + leaves(block):
-                t.grad = None
-            del y
-            if i >= 2:        # two warm-up rounds: first-call costs
-                fwd.append(t1 - t0)
-                bwd.append(t2 - t1)
-        out = {"fwd_s": float(np.mean(fwd)), "bwd_s": float(np.mean(bwd)),
-               "fwd_std_s": float(np.std(fwd)),
-               "bwd_std_s": float(np.std(bwd))}
-        key = {"arch": cfg.name, "micro_batch": int(micro_batch),
-               "seq": int(seq), "tp": 1}
-        self.db.add(self.platform, "layer_fwd", ProfileEntry(
-            dict(key), out["fwd_s"], out["fwd_std_s"], len(fwd)))
-        self.db.add(self.platform, "layer_bwd", ProfileEntry(
-            dict(key), out["bwd_s"], out["bwd_std_s"], len(bwd)))
-        cost = P.model_layer_cost(cfg, micro_batch, seq)
-        for n in layer_counts:
-            for kind, mult, t, sd in (
-                ("fwd", 1.0, out["fwd_s"], out["fwd_std_s"]),
-                ("bwd", cost.bwd_multiplier, out["bwd_s"],
-                 out["bwd_std_s"]),
-            ):
-                # the node pipeline_graph builds for a chunk of n layers
-                node = OpNode(0, kind, kind,
-                              flops=cost.fwd_flops * n * mult,
-                              in_bytes=cost.fwd_bytes * n * mult)
-                self.db.add(self.platform, kind, ProfileEntry(
-                    {"flops": int(node.flops),
-                     "bytes": int(node.bytes_accessed)},
-                    n * t, n * sd, len(fwd), flops=node.flops,
-                    bytes=node.bytes_accessed))
-        return out
-
     def profile_all(self) -> int:
         n = 0
         n += self.profile_matmul()

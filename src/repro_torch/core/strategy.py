@@ -91,6 +91,11 @@ class LayerCost:
     # per-tensor metadata (one f32 scale each for int8), so the estimator
     # needs the count, not just the element total
     grad_tensors: int = 1
+    # the ProfileDB key (sorted (name, value) pairs) of this layer's forward
+    # and backward measured on the card (``layer_fwd``/``layer_bwd``); the
+    # estimator prices a chunk of n layers as n times them.  None: priced
+    # from flops and bytes
+    profile_key: Optional[tuple] = None
 
 
 class GraphBuilder:
@@ -174,7 +179,10 @@ def pipeline_graph(
     the uniform per-stage gradient all-reduce payload with the partition's
     exact per-stage trees, and ``moe_a2a`` (``{"meta": .., "comm_bytes":
     .., "group_size": .., "layers_per_vstage": [..]}``) attaches one
-    expert-dispatch all-to-all node per (MoE layer, fwd step).
+    expert-dispatch all-to-all node per (MoE layer, fwd step).  A ``cost``
+    with a ``profile_key`` (a layer measured on the card) marks every F/B
+    node with it and the chunk's layer count, which the estimator prices
+    as that many times the measured layer.
     """
     from repro_torch.dist.schedules import FWD
 
@@ -193,6 +201,10 @@ def pipeline_graph(
     fwd_bytes = cost.fwd_bytes * per_vstage
     bwd_flops = fwd_flops * cost.bwd_multiplier
     bwd_bytes = fwd_bytes * cost.bwd_multiplier
+    # a measured layer: the estimator prices the chunk as per_vstage times it
+    layer_meta = ({"meta": {"layer_profile": dict(cost.profile_key),
+                            "layers": per_vstage}}
+                  if cost.profile_key else {})
     # boundary sends carry the exact per-hop payload the executor ppermutes;
     # dist_comm_bytes passes comm_bytes through (or, with a pp_hop
     # annotation from hop_meta_extra, re-derives it from the executor byte
@@ -221,7 +233,7 @@ def pipeline_graph(
             step.name, kind, deps,
             flops=fwd_flops if step.phase == FWD else bwd_flops,
             in_bytes=fwd_bytes if step.phase == FWD else bwd_bytes,
-            device=f"stage{s}",
+            device=f"stage{s}", **layer_meta,
         )
         prev_on_device[s] = step.name
         if step.phase == FWD and a2a_layers and a2a_layers[k]:
@@ -375,6 +387,7 @@ def model_pipeline_graph(
     micro_batch: int,
     seq: int,
     params=None,
+    cost: Optional[LayerCost] = None,
 ) -> DataflowGraph:
     """The pipeline DAG of a REAL model partition — the sim side of
     ``repro_torch.models.pipeline``.
@@ -396,7 +409,9 @@ def model_pipeline_graph(
         ``repro_torch.dist.ep_a2a.a2a_payload_bytes``.
 
     ``params`` may be the model's param pytree (or ShapeDtypeStructs); when
-    None the abstract params are derived from the config.
+    None the abstract params are derived from the config.  ``cost`` is the
+    per-layer cost (e.g. ``model_layer_cost`` over a DB holding the layer
+    measured on the card); None: ``model_layer_cost``'s analytic one.
     """
     from repro_torch.models.build import build_model
     from repro_torch.models.pipeline import (
@@ -410,7 +425,8 @@ def model_pipeline_graph(
         cfg, strategy.pp, strategy.microbatches,
         schedule=strategy.schedule, vstages=strategy.vstages,
     )
-    cost = model_layer_cost(cfg, micro_batch, seq, tp=strategy.tp)
+    if cost is None:
+        cost = model_layer_cost(cfg, micro_batch, seq, tp=strategy.tp)
     hop_meta_extra = {
         "pp_hop": {
             "shape": list(plan.act_shape(micro_batch, seq)),

@@ -330,18 +330,77 @@ def moe_layers_per_vstage(plan: PipelinePlan) -> list[int]:
     return out
 
 
+def _layer_key(cfg: ArchConfig, micro_batch: int, seq: int,
+               tp: int) -> dict:
+    return {"arch": cfg.name, "micro_batch": int(micro_batch),
+            "seq": int(seq), "tp": int(tp)}
+
+
+def profile_layer(db, platform: str, cfg: ArchConfig, micro_batch: int,
+                  seq: int, device, repeats: int = 5) -> dict:
+    """Time one decoder block of ``cfg`` (random seeded weights, the
+    config's compute dtype and remat) on a (micro_batch, seq) activation on
+    ``device``: its forward with the graph kept, as the executor's F step
+    runs it, and its backward, as a B step runs it (the recompute
+    included).  Records the means under ``layer_fwd``/``layer_bwd`` keyed by
+    (arch, micro_batch, seq, tp=1), the entries :func:`model_layer_cost`
+    points the estimator at.  Returns ``{"fwd_s", "bwd_s", "fwd_std_s",
+    "bwd_std_s"}``."""
+    import time
+
+    import numpy as np
+
+    from repro_torch.core.database import ProfileEntry
+    from repro_torch.device import synchronize
+    from repro_torch.tree import leaves
+
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    block = tree_map(lambda t: t.requires_grad_(),
+                     transformer.init_block(gen, cfg))
+    _first, layer_fn, _loss = stage_fns(cfg, 1)
+    cdt = L.dtype_of(cfg.compute_dtype)
+    x = torch.randn((micro_batch, seq, cfg.d_model), generator=gen,
+                    device=device).to(cdt).requires_grad_()
+    dy = torch.randn((micro_batch, seq, cfg.d_model), generator=gen,
+                     device=device).to(cdt)
+    fwd, bwd = [], []
+    for i in range(max(repeats, 1) + 2):
+        synchronize(device)
+        t0 = time.perf_counter()
+        y, _aux = layer_fn(block, x)
+        synchronize(device)
+        t1 = time.perf_counter()
+        torch.autograd.backward([y], [dy])
+        synchronize(device)
+        t2 = time.perf_counter()
+        for t in [x] + leaves(block):
+            t.grad = None
+        del y
+        if i >= 2:        # two warm-up rounds: first-call costs
+            fwd.append(t1 - t0)
+            bwd.append(t2 - t1)
+    out = {"fwd_s": float(np.mean(fwd)), "bwd_s": float(np.mean(bwd)),
+           "fwd_std_s": float(np.std(fwd)), "bwd_std_s": float(np.std(bwd))}
+    key = _layer_key(cfg, micro_batch, seq, 1)
+    db.add(platform, "layer_fwd", ProfileEntry(
+        dict(key), out["fwd_s"], out["fwd_std_s"], len(fwd)))
+    db.add(platform, "layer_bwd", ProfileEntry(
+        dict(key), out["bwd_s"], out["bwd_std_s"], len(bwd)))
+    return out
+
+
 def model_layer_cost(cfg: ArchConfig, micro_batch: int, seq: int,
                      tp: int = 1, db=None, platform: str = ""):
     """Per-layer LayerCost with the partition's REAL boundary payload.
 
     Flops and bytes come from the analytic
     ``core.autotuner.layer_cost_from_config``; ``boundary_bytes`` is the
-    activation payload the executor ships per hop.  With ``db``, the cost
-    must have been profiled on ``platform`` (``core.profiler.
-    OfflineProfiler.profile_layer``): the DB then holds the measured time of
-    every chunk node this cost's signature gives, and the estimator prices
-    the pipeline graph's compute nodes from it.  A cost nobody profiled
-    raises.
+    activation payload the executor ships per hop.  With ``db``, the layer
+    must have been measured on ``platform`` (:func:`profile_layer`): the
+    cost then carries the DB key of that measurement, and the estimator
+    prices a pipeline chunk of n layers as n times the layer's forward or
+    backward.  A layer nobody profiled raises.
     """
     from repro_torch.core.autotuner import layer_cost_from_config
 
@@ -349,11 +408,11 @@ def model_layer_cost(cfg: ArchConfig, micro_batch: int, seq: int,
     hop = pp.boundary_bytes((micro_batch, seq, cfg.d_model),
                             cfg.compute_dtype)
     cost = dataclasses.replace(base, boundary_bytes=hop)
-    if db is not None:
-        key = {"arch": cfg.name, "micro_batch": int(micro_batch),
-               "seq": int(seq), "tp": int(tp)}
-        if db.lookup(platform, "layer_fwd", key) is None:
-            raise KeyError(f"no measured layer cost for {key} on "
-                           f"{platform!r}: profile it first "
-                           "(OfflineProfiler.profile_layer)")
-    return cost
+    if db is None:
+        return cost
+    key = _layer_key(cfg, micro_batch, seq, tp)
+    for kind in ("layer_fwd", "layer_bwd"):
+        if db.lookup(platform, kind, key) is None:
+            raise KeyError(f"no measured {kind} for {key} on {platform!r}: "
+                           "profile it first (profile_layer)")
+    return dataclasses.replace(cost, profile_key=tuple(sorted(key.items())))

@@ -79,10 +79,12 @@ def test_model_pipeline_graph_and_layer_cost_equal_reference(arch):
                 assert port_est.dist_comm_bytes(tn) == \
                     jax_est.dist_comm_bytes(jn)
     for mb, tp in ((1, 1), (4, 2)):
-        assert dataclasses.asdict(
-            port_tuner.layer_cost_from_config(tcfg, mb, 64, tp)) == \
-            dataclasses.asdict(
-                jax_tuner.layer_cost_from_config(jcfg, mb, 64, tp))
+        # the port's one extra field: no measured layer behind this cost
+        tcost = dataclasses.asdict(
+            port_tuner.layer_cost_from_config(tcfg, mb, 64, tp))
+        assert tcost.pop("profile_key") is None
+        assert tcost == dataclasses.asdict(
+            jax_tuner.layer_cost_from_config(jcfg, mb, 64, tp))
     assert port_strategy.grad_allreduce_node_meta([3, 4, 5], "int8") == \
         jax_strategy.grad_allreduce_node_meta([3, 4, 5], "int8")
     if tcfg.moe is not None:
@@ -176,29 +178,39 @@ def test_timeline_trace_equals_reference(tmp_path):
 
 
 def test_card_profiled_layer_cost_prices_every_chunk_from_the_db():
-    """``OfflineProfiler.profile_layer`` (here on the CPU, under the H100's
-    platform key) records a layer's forward and backward and the chunk
-    signatures ``pipeline_graph`` gives; an autotuner over that cost prices
-    every compute node from the DB, and a micro-batch nobody profiled is
+    """``models.pipeline.profile_layer`` (here on the CPU, under the H100's
+    platform key) records one layer's forward and backward and nothing
+    else; an autotuner over that cost prices every compute node as its
+    chunk's layer count times them, and a micro-batch nobody profiled is
     refused."""
     from repro_torch.core.database import ProfileDB
-    from repro_torch.core.profiler import OfflineProfiler
-    from repro_torch.models.pipeline import model_layer_cost
+    from repro_torch.models.pipeline import model_layer_cost, profile_layer
 
     cfg = port_configs.smoke_variant(port_configs.get_config("llama3.2-1b"))
     db = ProfileDB()
-    prof = OfflineProfiler(db, platform=port_hw.H100_SXM.name, repeats=2,
-                           device="cpu")
-    for mb in (1, 2):
-        out = prof.profile_layer(cfg, mb, 32, layer_counts=(1, 2, 4))
+    plat = port_hw.H100_SXM.name
+    layer = {mb: profile_layer(db, plat, cfg, mb, 32, "cpu", repeats=2)
+             for mb in (1, 2)}
+    for out in layer.values():
         assert out["fwd_s"] > 0 and out["bwd_s"] > 0
+    assert db.op_families(plat) == ["layer_bwd", "layer_fwd"]
     est = port_est.OpTimeEstimator(port_hw.H100_SXM, db)
     tuner = port_tuner.Autotuner(
         cfg, chips=4, global_batch=4, seq=32, estimator=est,
         layer_cost=lambda mb, tp: model_layer_cost(
-            cfg, mb, 32, tp, db=db, platform=port_hw.H100_SXM.name))
+            cfg, mb, 32, tp, db=db, platform=plat))
     res = tuner.search(tp_options=(1,), microbatch_options=(2, 4))
-    assert res and est.stats["db"] > 0
-    assert est.stats["learned"] == est.stats["analytic"] == 0
+    assert res and est.layer_chunks > 0
+    assert est.stats["db"] == est.stats["learned"] == \
+        est.stats["analytic"] == 0
+    # one chunk of a pp=2 graph: half the layers times the measured layer
+    cost = model_layer_cost(cfg, 1, 32, db=db, platform=plat)
+    g = port_strategy.pipeline_graph(
+        cfg.num_layers, cost, port_strategy.Strategy(pp=2, microbatches=2))
+    per = cfg.num_layers // 2
+    for n in g.nodes:
+        if n.kind in ("fwd", "bwd"):
+            assert est.duration(n) == pytest.approx(
+                per * layer[1][f"{n.kind}_s"], rel=1e-12)
     with pytest.raises(KeyError, match="profile it first"):
-        model_layer_cost(cfg, 8, 32, db=db, platform=port_hw.H100_SXM.name)
+        model_layer_cost(cfg, 8, 32, db=db, platform=plat)
