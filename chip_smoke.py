@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --only kernels   # build, check and time the kernels
-    python3 chip_smoke.py --only pp        # kernels' checks, then this
-                                           # slice's remat and pp phases
+    python3 chip_smoke.py --only pp        # kernels' checks, then the
+                                           # remat and pp phases
+    python3 chip_smoke.py --only ep        # kernels' checks, then the
+                                           # expert-parallel phases
 
 Phases, each printing one line of numbers:
 
@@ -147,7 +149,27 @@ Phases, each printing one line of numbers:
              llama3.2-1b on 8 H100 SXM from the card-profiled layer cost,
              every chunk priced from the measured layer: the top 5
              (simulated);
-23. a JSON line of every kernel at the serve and train shapes: launches on
+23. ep-train — qwen3-moe-235b-a22b at its published widths, 2 of its 94
+             layers (bf16 parameters, Adafactor, "full" remat, 128 experts
+             top-8, capacity factor 1.25, groups of 512; grad_accum cut 8 ->
+             1) through ``launch.train.train`` with ``impl="ep_a2a"`` on a
+             (data 4 x model 1) mesh of 4 logical ranks of the card: tokens
+             (4, 2048), 3 steps (4 flash and 9 RMSNorm launches a step, aux
+             > 0, every MoE call through EP asserted), the peak memory and
+             the bytes the all-to-alls moved; then one more step under
+             torch.profiler (``ep-train-profile``: the exchanges' device
+             time under the ``dist.all_to_all`` range);
+24. ep-check — the run's weights and first batch through EP and through
+             the einsum path (no update): EP in the forward and the
+             recompute, loss and aux within 1e-3, every gradient leaf
+             within 2e-2 (relative L2); the FFN alone at full width on
+             (4, 1) and (2, 2) meshes against the einsum path;
+25. ep-parity — the all-to-all bytes of a forward pass, executed = twin =
+             simulated (2,684,354,560), and a train step's (twice: the
+             recompute);
+26. ep-plan — the EP layer profiled on the card, the cell's strategy
+             simulated on 4 H100 SXM with its all-to-all share;
+27. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -252,8 +274,9 @@ SSM = dict(batch=2, prompt=512, decode=8, seed=1,
 # the SSD scan's bf16 kernels, by the bit that runs each alone
 SSD_STAGES = {"ssd_chunk_state_kernel": 1, "ssd_state_pass_kernel": 2,
               "ssd_chunk_out_kernel": 4}
-# profiler ranges: the train step's phases and the kernel ops
-RANGES = ("train_step.", "repro_torch::")
+# profiler ranges: the train step's phases, the kernel ops and the
+# collectives' exchanges (``dist.all_to_all``)
+RANGES = ("train_step.", "repro_torch::", "dist.")
 # kernel names -> kinds, for the train step's device-time breakdown (first
 # match wins)
 KERNEL_KINDS = (
@@ -313,6 +336,8 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                "encdec-decode-cross": ((2, 1, 4096, 16, 16, 64), torch.float32,
                                        FP32_TOL, False),
                "pp-train": ((1, 2048, 2048, 32, 8, 64), torch.bfloat16,
+                            ATTN_BF16_TOL, True),
+               "ep-train": ((4, 2048, 2048, 64, 4, 128), torch.bfloat16,
                             ATTN_BF16_TOL, True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
@@ -341,6 +366,28 @@ ENCDEC_DECODE = dict(batch=2, prompt=64, decode=8, seed=1, tol=1e-3)
 # microbatches of 1 x 2048; a warm-up step and 3 timed ones
 PP = dict(seq=2048, batch=8, pp=2, dp=2, microbatches=4, schedule="1f1b",
           compression="int8", steps=4, seed=0)
+# [ep-*]: qwen3-moe-235b-a22b at its published widths (d_model 4096, 64/4
+# heads of 128, 128 experts top-8 of width 1536, capacity factor 1.25,
+# groups of 512, vocab 151,936, untied head; bf16 parameters, Adafactor,
+# "full" remat), impl="ep_a2a" on a (data 4 x model 1) mesh of 4 logical
+# ranks of the one card.  Cut: depth 94 -> 2, grad_accum 8 -> 1.  Tokens
+# (4, 2048) from the synthetic pipeline: each rank's 2048 tokens are 4 of the
+# 16 global groups, C = 40 slots an expert; 3 steps
+EP_ARCH, EP_LAYERS = "qwen3-moe-235b-a22b", 2
+EP = dict(seq=2048, batch=4, ranks=4, grad_accum=1, steps=3, seed=0)
+EP_REDUCED = {"num_layers": "94 -> 2", "grad_accum": "8 -> 1"}
+# [ep-check]: EP against the einsum path on the same weights and tokens:
+# the loss and aux relative 1e-3; each gradient leaf's relative L2
+# difference, and the FFN alone's output's, within the reference's bf16
+# tolerance (both paths route in fp32 on matmuls of other shapes, so a
+# near-tie can flip a token's choice: a relative norm, not a max)
+EP_CHECK_TOL = {"scalar": 1e-3, "grad": BF16_TOL, "ffn": BF16_TOL}
+# [ep-check] FFN alone: one layer's experts on x (4, 2048, 4096) bf16
+EP_FFN_MESHES = ((4, 1), (2, 2))
+# [ep-parity]: the all-to-all bytes of one forward pass: 2 layers x 2
+# exchanges (dispatch, return) x 4 ranks x one rank's payload of 128
+# experts x 4 groups x 40 slots x 4096 x 2 bytes (bf16)
+EP_A2A_FORWARD_BYTES = 2 * 2 * 4 * 167_772_160
 # [autotune]: llama3.2-1b on 8 H100 SXM at PP's global batch; the layer is
 # profiled on the card at every microbatch size a candidate can have
 AUTOTUNE = dict(chips=8, micro_batches=(1, 2, 4, 8))
@@ -1459,10 +1506,10 @@ def kernel_counters() -> dict:
 
 
 def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
-    """``run["steps"]`` steps of ``launch.train.train`` on ``cfg``; per step
-    the loss, ce and aux, host and device ms, tokens/s, the peak memory of
-    that step and each kernel's launches, which must be
-    ``train_launches``'s."""
+    """``run["steps"]`` steps of ``launch.train.train`` on ``cfg`` (over
+    ``run["ranks"]`` logical ranks where the run names them); per step the
+    loss, ce and aux, host and device ms, tokens/s, the peak memory of that
+    step and each kernel's launches, which must be ``train_launches``'s."""
     from repro_torch.core.hardware import platform_for_device
     from repro_torch.launch.train import train
     from repro_torch.tree import leaves
@@ -1487,14 +1534,15 @@ def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
                                 f"expected {want[k]}")
 
     torch.cuda.reset_peak_memory_stats(dev)
+    logs: list = []
     # the main path: counts from zero, read right after
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
     state, losses = train(cfg, steps=run["steps"], seq=run["seq"],
                           batch=run["batch"], grad_accum=run["grad_accum"],
-                          seed=run["seed"], device=dev, on_step=on_step,
-                          log_fn=lambda _: None)
+                          ranks=run.get("ranks"), seed=run["seed"],
+                          device=dev, on_step=on_step, log_fn=logs.append)
     wall = time.perf_counter() - t0
     launches = {k: c.count for k, c in counters.items()}
     if not all(math.isfinite(x) for x in losses):
@@ -1508,6 +1556,7 @@ def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
           seconds=wall)
     return {"cfg": cfg, "run": run, "state": state, "launches": launches,
             "steps": steps, "last_step_ms": steps[-1]["host_ms"],
+            "logs": logs,
             "platform": platform_for_device(torch.cuda.get_device_name(dev))}
 
 
@@ -2375,6 +2424,323 @@ def pp_phases(dev, gen, platform, db, failures: list) -> list:
     return pp_kernel_table(dev, gen, platform, pctx["launches"], failures)
 
 
+# -- phases 23-26: expert parallelism --------------------------------------------
+
+
+def ep_config():
+    """qwen3-moe-235b-a22b at its published widths, ``EP_LAYERS`` of its
+    94 layers, MoE through ``impl="ep_a2a"``."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(EP_ARCH)
+    return dataclasses.replace(cfg, num_layers=EP_LAYERS,
+                               moe=dataclasses.replace(cfg.moe,
+                                                       impl="ep_a2a"))
+
+
+def ep_mesh(dev, shape=(EP["ranks"], 1)):
+    from repro_torch.dist.mesh import make_mesh
+
+    return make_mesh(shape, ("data", "model"), dev)
+
+
+def ep_train_phase(dev, failures: list) -> dict:
+    """``[ep-train]``: ``train_phase`` on the EP cell (4 flash and 9 RMSNorm
+    launches a step: 2 layers' forward and recompute, the final norm), then
+    ``[ep-train-path]``: the MoE calls by path, which must all be EP (2
+    layers x 2 passes a step), aux > 0 every step, the bytes the
+    all-to-alls moved and the launcher's ``[comm]`` and ``[moe]`` lines."""
+    from repro_torch.dist import mesh as M
+    from repro_torch.models import moe as moe_mod
+
+    ectx = train_phase(dev, failures, ep_config(), EP, "ep-train")
+    cfg = ectx["cfg"]
+    calls = dict(moe_mod.EP_CALLS)
+    ectx["traffic"] = dict(M.TRAFFIC)
+    want = {"ep_a2a": EP["steps"] * cfg.num_layers * 2}
+    if calls != want:
+        failures.append(f"ep-train: MoE calls by path {calls}, expected "
+                        f"{want}")
+    aux = [r["aux"] for r in ectx["steps"]]
+    if not all(a > 0.0 for a in aux):
+        failures.append(f"ep-train: aux {aux}")
+    phase("ep-train-path", experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+          capacity_factor=cfg.moe.capacity_factor,
+          group_size=cfg.moe.group_size, optimizer=cfg.optimizer,
+          param_dtype=cfg.param_dtype, mesh={"data": EP["ranks"],
+                                             "model": 1},
+          reduced=EP_REDUCED, aux=aux, moe_calls_by_path=calls,
+          traffic_bytes=ectx["traffic"], launcher_lines=[
+              ln for ln in ectx["logs"] if ln.startswith(("[comm]",
+                                                          "[moe]"))],
+          note="4 logical ranks share one card and run one after another: "
+               "not a multi-card step time")
+    return ectx
+
+
+def ep_step(cfg, mesh):
+    """The launcher's step for the EP cell, under its sharding context."""
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding import make_ctx, use_sharding
+    from repro_torch.optim import cosine_with_warmup, make_optimizer
+    from repro_torch.train.step import make_sharded_train_step
+
+    inner = make_sharded_train_step(
+        build_model(cfg), make_optimizer(cfg.optimizer),
+        cosine_with_warmup(3e-4, 20, 21), mesh)
+    ctx = make_ctx(mesh, overrides=cfg.sharding_overrides)
+
+    def step(state, batch):
+        with use_sharding(ctx):
+            return inner(state, batch)
+
+    return step
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor, chunk: int = 1 << 26) -> float:
+    """||a - b|| / ||b||, the squares summed in fp64 a chunk of the
+    flattened tensors at a time: an fp64 copy of a whole stacked expert
+    leaf (1.6 G elements) would not fit beside two gradient trees."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    num = den = 0.0
+    for i in range(0, b.numel(), chunk):
+        x, y = a[i:i + chunk].double(), b[i:i + chunk].double()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return math.sqrt(num / max(den, 1e-60))
+
+
+def ep_check_phase(dev, ectx: dict, failures: list) -> None:
+    """``[ep-check]``: (1) the run's weights and first batch through one
+    forward and backward (no update) under EP, then through the einsum
+    path: EP taken in the forward and in the "full" remat's recompute (and
+    the einsum path in both without the context), loss and aux within
+    ``EP_CHECK_TOL["scalar"]``, every gradient leaf within
+    ``EP_CHECK_TOL["grad"]`` (relative L2).  (2) The FFN alone at full
+    width, x (4, 2048, 4096) bf16 and layer 0's experts, on each mesh of
+    ``EP_FFN_MESHES`` against the einsum path: output within
+    ``EP_CHECK_TOL["ffn"]`` (relative L2), aux within the scalar limit, and
+    the device time of each (one card: the ranks in series)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.sharding import make_ctx, use_sharding
+    from repro_torch.tree import leaves
+
+    cfg, run = ectx["cfg"], ectx["run"]
+    params = ectx["state"].params
+    model = build_model(cfg)
+    batch = synthetic_batch(cfg, run, 0, dev)
+    ctx = make_ctx(ep_mesh(dev), overrides=cfg.sharding_overrides)
+    flat = leaves(params)
+    out = {}
+    for path in ("ep_a2a", "einsum"):
+        moe_mod.reset_ep_calls()
+        with use_sharding(ctx if path == "ep_a2a" else None):
+            loss, met = model.loss(params, batch)
+            fwd_calls = dict(moe_mod.EP_CALLS)
+            grads = torch.autograd.grad(loss, flat)
+        n = cfg.num_layers
+        calls = {"forward": fwd_calls, "with_recompute":
+                 dict(moe_mod.EP_CALLS)}
+        if calls != {"forward": {path: n}, "with_recompute": {path: 2 * n}}:
+            failures.append(f"ep-check {path}: MoE calls by path {calls}")
+        out[path] = (float(loss.detach()), float(met["aux"].detach()),
+                     grads, calls)
+        del loss, met, grads
+    (l_ep, a_ep, g_ep, c_ep), (l_e, a_e, g_e, _) = out["ep_a2a"], \
+        out["einsum"]
+    names = leaf_names(params)
+    errs = {name: rel_l2(a, b) for name, a, b in zip(names, g_ep, g_e)}
+    del out, g_ep, g_e
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    scal = {"loss": abs(l_ep - l_e) / abs(l_e), "aux": abs(a_ep - a_e)
+            / abs(a_e)}
+    ok = (max(scal.values()) <= EP_CHECK_TOL["scalar"]
+          and max(errs.values()) <= EP_CHECK_TOL["grad"])
+    if not ok:
+        failures.append(f"ep-check: scalars {scal}, worst gradient leaves "
+                        f"{worst} over {EP_CHECK_TOL}")
+    phase("ep-check-step", loss={"ep_a2a": l_ep, "einsum": l_e},
+          aux={"ep_a2a": a_ep, "einsum": a_e}, rel_err=scal,
+          grad_rel_l2_worst=dict(worst), leaves=len(errs),
+          moe_calls=c_ep, tol=EP_CHECK_TOL, ok=ok)
+
+    # the FFN alone, at full width
+    torch.cuda.empty_cache()
+    moe = cfg.moe
+    p = {k: v[0].detach() for k, v in params["blocks"]["moe"].items()}
+    x = torch.randn((run["batch"], run["seq"], cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(3),
+                    device=dev).to(torch.bfloat16)
+    cdt = torch.bfloat16
+    rows = {}
+    with torch.no_grad():
+        y_e, aux_e = moe_mod.moe_ffn(p, x, moe, cdt)      # no context
+        rows["einsum"] = {"ms": cuda_ms(lambda: moe_mod.moe_ffn(
+            p, x, moe, cdt), iters=3, warmup=1)}
+        for shape in EP_FFN_MESHES:
+            fctx = make_ctx(ep_mesh(dev, shape))
+            moe_mod.reset_ep_calls()
+            with use_sharding(fctx):
+                y, aux = moe_mod.moe_ffn(p, x, moe, cdt)
+                calls = dict(moe_mod.EP_CALLS)
+                ms = cuda_ms(lambda: moe_mod.moe_ffn(p, x, moe, cdt),
+                             iters=3, warmup=1)
+            err = rel_l2(y, y_e)
+            aux_err = abs(float(aux) - float(aux_e)) / abs(float(aux_e))
+            name = f"ep_a2a data {shape[0]} x model {shape[1]}"
+            rows[name] = {"ms": ms, "y_rel_l2": err,
+                          "y_max_abs_err": max_err(y, y_e),
+                          "aux_rel_err": aux_err, "moe_calls": calls}
+            if (calls != {"ep_a2a": 1} or err > EP_CHECK_TOL["ffn"]
+                    or aux_err > EP_CHECK_TOL["scalar"]):
+                failures.append(f"ep-check {name}: {rows[name]}")
+            del y
+    slots = moe_mod.capacity(moe, moe_mod.group_size(moe, x.shape[0]
+                                                     * x.shape[1]))
+    phase("ep-check-ffn", x=list(x.shape), dtype="bfloat16",
+          experts=moe.num_experts, top_k=moe.top_k, capacity=slots,
+          tol=EP_CHECK_TOL["ffn"], paths=rows,
+          note="one card: every rank's work in series")
+
+
+def ep_parity_phase(dev, ectx: dict, failures: list) -> None:
+    """``[ep-parity]``: the all-to-all bytes of one forward pass of the run's
+    model, as executed (``mesh.TRAFFIC["all_to_all"]``), as the twin
+    (layers x 2 exchanges x 4 ranks x ``moe_a2a_bytes`` at the compute
+    dtype's itemsize, 2 for bf16), and as the
+    estimator prices the all-to-all nodes of ``model_pipeline_graph`` for
+    the same strategy (dp 4, one microbatch of 1 x 2048 a rank): each node
+    is one rank's dispatch, so times its group of 4, times 2 for the
+    return exchange that the graph does not carry.  All equal
+    ``EP_A2A_FORWARD_BYTES``.  A train step moves twice the forward's: the
+    "full" remat recomputes each layer, its exchanges included; the
+    backward's transposed exchanges are autograd's copies, not counted."""
+    from repro_torch.core.estimator import dist_comm_bytes
+    from repro_torch.core.strategy import Strategy, model_pipeline_graph
+    from repro_torch.dist import mesh as M
+    from repro_torch.dist.ep_a2a import moe_a2a_bytes
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.sharding import make_ctx, use_sharding
+
+    cfg, run = ectx["cfg"], ectx["run"]
+    model = build_model(cfg)
+    dp = run["ranks"]
+    batch = synthetic_batch(cfg, run, 0, dev)
+    M.reset_traffic()
+    with torch.no_grad(), use_sharding(make_ctx(ep_mesh(dev))):
+        model.loss(ectx["state"].params, batch)
+    executed = M.TRAFFIC.get("all_to_all", 0)
+    tokens_local = run["batch"] // dp * run["seq"]
+    itemsize = dtype_of(cfg.compute_dtype).itemsize
+    payload = moe_a2a_bytes(cfg.moe, tokens_local, cfg.d_model, itemsize)
+    twin = cfg.num_layers * 2 * dp * payload
+    graph = model_pipeline_graph(cfg, Strategy(dp=dp), run["batch"] // dp,
+                                 run["seq"])
+    a2a = [n for n in graph.nodes if n.kind == "all-to-all"]
+    sim_dispatch = sum(dist_comm_bytes(n) for n in a2a)
+    sim = 2 * sum(dist_comm_bytes(n) * n.group_size for n in a2a)
+    per_step = ectx["traffic"].get("all_to_all", 0) / run["steps"]
+    ok = (executed == twin == sim == EP_A2A_FORWARD_BYTES
+          and per_step == 2 * executed)
+    phase("ep-parity", all_to_all_bytes_forward={
+        "executed": executed, "twin": twin, "simulated": sim,
+        "expected": EP_A2A_FORWARD_BYTES},
+          payload_per_rank=payload, simulated_nodes=len(a2a),
+          simulated_dispatch_per_device=sim_dispatch,
+          train_step_executed=per_step,
+          train_step_note="the full remat recomputes each layer's "
+                          "exchanges: 2 x the forward's",
+          ok=ok)
+    if not ok:
+        failures.append("ep-parity: executed, twin and simulated "
+                        "all-to-all bytes differ")
+
+
+def ep_plan_phase(dev, ectx: dict, db, failures: list) -> None:
+    """``[ep-plan]``: one EP-cell layer profiled on the card (forward and
+    backward at a microbatch of 1 x 2048, the einsum FFN on one rank's
+    tokens, as a rank computes it), then the cell's strategy (dp 4, experts
+    over the data ranks) priced from that profile on 4 H100 SXM
+    (data-sheet NVLink for the collectives) and simulated: the step, its
+    all-to-all time and share.  Simulated, not compared with the one-card
+    wall time of 4 ranks in series."""
+    from repro_torch.core.estimator import OpTimeEstimator
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.simulator import simulate
+    from repro_torch.core.strategy import Strategy, model_pipeline_graph
+    from repro_torch.models.pipeline import model_layer_cost, profile_layer
+
+    cfg, run = ectx["cfg"], ectx["run"]
+    dp, mbs = run["ranks"], run["batch"] // run["ranks"]
+    t0 = time.perf_counter()
+    layer = profile_layer(db, H100_SXM.name, cfg, mbs, run["seq"], dev)
+    profile_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    est = OpTimeEstimator(H100_SXM, db)
+    strategy = Strategy(dp=dp)
+    graph = model_pipeline_graph(
+        cfg, strategy, mbs, run["seq"],
+        cost=model_layer_cost(cfg, mbs, run["seq"], db=db,
+                              platform=H100_SXM.name))
+    res = simulate(graph, est.duration, record_events=False)
+    chunks = sum(n.kind in ("fwd", "bwd") for n in graph.nodes)
+    if est.layer_chunks != chunks:
+        failures.append(f"ep-plan: {est.layer_chunks} of {chunks} chunks "
+                        "priced from the measured layer")
+    a2a_s = sum(v for k, v in res.time_by_kind.items()
+                if k.startswith("link:ep"))
+    phase("ep-plan", strategy=strategy.describe(), simulated=True,
+          platform=H100_SXM.name, chips=dp, micro_batch=mbs,
+          seq=run["seq"], simulated_step_ms=1e3 * res.makespan,
+          simulated_ms_by_kind={k: 1e3 * v
+                                for k, v in res.time_by_kind.items()},
+          all_to_all_ms=1e3 * a2a_s,
+          all_to_all_share=a2a_s / res.makespan,
+          layer_profile_ms={k[:-2] + "_ms": 1e3 * v
+                            for k, v in layer.items()},
+          profile_seconds=profile_s, estimator_stats=dict(est.stats),
+          note="the graph carries one dispatch all-to-all a MoE layer and "
+               "forward, and the gradient all-reduce of the whole tree "
+               "(the reference's strategy graph)")
+
+
+def ep_kernel_table(dev, gen, platform, launches, failures: list) -> list:
+    """The kernels at the EP step's shapes (x (4, 2048, 4096); q 64 heads
+    against k/v 4 heads of 128): RMSNorm and flash attention, launches
+    from ``[ep-train]``."""
+    cfg, chip = ep_config(), platform.chip
+    steps = EP["steps"]
+    return [
+        rmsnorm_row(dev, gen, chip, "rmsnorm@ep-train",
+                    (EP["batch"], EP["seq"], cfg.d_model), cfg.norm_eps,
+                    launches["rmsnorm"], launches["rmsnorm"] / steps,
+                    failures),
+        flash_train_row(dev, gen, chip, "ep-train",
+                        launches["flash_attention"],
+                        launches["flash_attention"] / steps, failures)]
+
+
+def ep_phases(dev, gen, platform, db, failures: list) -> list:
+    """The expert-parallel phases, in order (ep-train, ep-train-profile,
+    ep-check, ep-parity, ep-plan), the layer profiled into ``db``; returns
+    the kernel rows at the EP step's shapes."""
+    ectx = ep_train_phase(dev, failures)
+    profile_train_step(dev, ectx, "ep-train-profile",
+                       step=ep_step(ectx["cfg"], ep_mesh(dev)))
+    ectx["state"] = ectx["state"]._replace(opt_state=None)
+    torch.cuda.empty_cache()
+    ep_check_phase(dev, ectx, failures)
+    torch.cuda.empty_cache()
+    ep_parity_phase(dev, ectx, failures)
+    ectx["state"] = None
+    torch.cuda.empty_cache()
+    ep_plan_phase(dev, ectx, db, failures)
+    torch.cuda.empty_cache()
+    return ep_kernel_table(dev, gen, platform, ectx["launches"], failures)
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -2405,13 +2771,13 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "pp"),
+    ap.add_argument("--only", choices=("kernels", "pp", "ep"),
                     help="kernels: build, check and time the kernels alone "
-                         "(no serve or train run, no launch counts); pp: "
-                         "build and check the kernels, then this slice's "
-                         "phases alone (remat-dots, pp-*, autotune; the "
-                         "layer profile into a fresh ProfileDB).  Neither "
-                         "prints the ok line")
+                         "(no serve or train run, no launch counts); pp or "
+                         "ep: build and check the kernels, then that "
+                         "slice's phases alone (remat-dots, pp-*, autotune; "
+                         "or ep-*; the layer profile into a fresh "
+                         "ProfileDB).  None prints the ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -2453,12 +2819,13 @@ def main() -> int:
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
-    if args.only == "pp":
+    if args.only in ("pp", "ep"):
         from repro_torch.core.database import ProfileDB
         from repro_torch.core.hardware import platform_for_device
 
         platform = platform_for_device(torch.cuda.get_device_name(dev))
-        print(json.dumps({"kernels": pp_phases(
+        phases = pp_phases if args.only == "pp" else ep_phases
+        print(json.dumps({"kernels": phases(
             dev, gen, platform, ProfileDB(), failures)}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
@@ -2530,8 +2897,11 @@ def main() -> int:
         "encdec": encdec_launches, "encdec_decode": encdec_decode_launches},
         failures)
 
-    # this slice: the "dots" remat, data and pipeline parallelism
+    # the "dots" remat, data and pipeline parallelism
     table += pp_phases(dev, gen, platform, dense_db, failures)
+    torch.cuda.empty_cache()
+    # this slice: expert parallelism
+    table += ep_phases(dev, gen, platform, dense_db, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -165,9 +165,10 @@ def dist_comm_bytes(node: OpNode) -> float:
     see ``core.strategy.grad_allreduce_node_meta``) on a compressed
     gradient all-reduce, priced through ``dist.compress``; ``{"pp_hop":
     {"shape", "dtype"}}`` on a model-derived pipeline boundary send, priced
-    through ``dist.pp.boundary_bytes``.  Unannotated nodes pass through.
-    An expert-parallel all-to-all (``moe_a2a``) raises: its executor is not
-    ported (ROADMAP.md, A6 part 2).
+    through ``dist.pp.boundary_bytes``; ``{"moe_a2a": {...}}`` on an
+    expert-parallel all-to-all (``core.strategy.moe_a2a_node_meta``), priced
+    through ``dist.ep_a2a.a2a_payload_bytes``.  Unannotated nodes pass
+    through.
     """
     scheme = node.meta.get("compression")
     if scheme and scheme != "none":
@@ -187,12 +188,11 @@ def dist_comm_bytes(node: OpNode) -> float:
         return compressed_allreduce_bytes(
             elems, n_tensors=n_tensors, scheme=scheme
         )
-    if node.meta.get("moe_a2a"):
-        raise NotImplementedError(
-            f"collective node {node.name!r} carries 'moe_a2a': the "
-            "expert-parallel all-to-all and its byte twin are not ported "
-            "(ROADMAP.md, A6 part 2)"
-        )
+    a2a = node.meta.get("moe_a2a")
+    if a2a:
+        from repro_torch.dist.ep_a2a import a2a_payload_bytes
+
+        return a2a_payload_bytes(**a2a)
     hop = node.meta.get("pp_hop")
     if hop:
         from repro_torch.dist.pp import boundary_bytes

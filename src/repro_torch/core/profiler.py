@@ -5,7 +5,7 @@ basic execution units of LM workloads — matmul, elementwise,
 transcendental, reduction, gather, dynamic-update-slice — over a grid of
 argument values, and records mean/std timings into the :class:`ProfileDB`,
 with the same op families and argument keys as the JAX package.  The
-collective sweep is not ported (ROADMAP.md, A6 part 2).
+collective sweep is not ported (ROADMAP.md, A14).
 
 On a CUDA device the ops run on the card on tensors there, and the timer
 synchronises the card before every clock read, so a sample covers the device

@@ -1,12 +1,13 @@
 """A mesh of logical ranks with named axes, and the collectives over an axis.
 
 The counterpart of ``jax.make_mesh`` and of the ``shard_map`` collectives
-(``psum``, ``pmean``, ``ppermute``, ``all_gather``) the JAX package's
-executors call.  The JAX executors are single-controller SPMD programs: one
-process, one body per device of a named mesh.  The port keeps that design:
-one process drives every logical rank of a :class:`Mesh` in turn, and a
-collective is a plain function over the per-rank tensors of one axis group
-(the ranks that differ only along that axis, the other axes held fixed).
+(``psum``, ``pmean``, ``ppermute``, ``all_gather``, ``all_to_all``) the JAX
+package's executors call.  The JAX executors are single-controller SPMD
+programs: one process, one body per device of a named mesh.  The port keeps
+that design: one process drives every logical rank of a :class:`Mesh` in
+turn, and a collective is a plain function over the per-rank tensors of one
+axis group (the ranks that differ only along that axis, the other axes held
+fixed).
 
 Each rank is bound to a ``torch.device``.  On the card the ranks go round
 robin over the visible CUDA devices, so on one card every rank shares it and
@@ -17,7 +18,7 @@ a device-to-device copy, a copy within the card where both ranks share it.
 
 :data:`TRAFFIC` counts the bytes each kind of collective moved, so a run can
 hold what it executed against the byte twins (``pp.boundary_bytes``,
-``compress.compressed_psum_bytes``).
+``compress.compressed_psum_bytes``, ``ep_a2a.a2a_payload_bytes``).
 """
 from __future__ import annotations
 
@@ -27,12 +28,14 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
 
 # bytes moved by the collectives since the last reset, by kind:
 # "ppermute" (one per hop), "psum" (each rank's contribution), "psum_int8"
-# (compressed payloads, counted by dist.compress), "all_gather"
+# (compressed payloads, counted by dist.compress), "all_gather",
+# "all_to_all" (each rank's whole payload, its own piece included)
 TRAFFIC: dict[str, int] = {}
 
 
@@ -118,6 +121,10 @@ class Mesh:
     def all_gather(self, values: dict, axis: str) -> dict:
         return self._over(all_gather, values, axis)
 
+    def all_to_all(self, values: dict, axis: str, split_axis: int,
+                   concat_axis: int) -> dict:
+        return self._over(all_to_all, values, axis, split_axis, concat_axis)
+
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
               device="cuda") -> Mesh:
@@ -196,3 +203,26 @@ def all_gather(xs: list, devices: list) -> list:
         _count("all_gather", nbytes(x))
     full = torch.stack([x.to(home) for x in xs])
     return [full.to(d) for d in devices]
+
+
+def all_to_all(xs: list, devices: list, split_axis: int,
+               concat_axis: int) -> list:
+    """``jax.lax.all_to_all`` (untiled) over the group: each rank's
+    ``split_axis``, of the group's size, is scattered, its piece ``j`` going
+    to rank ``j``, and rank ``r`` stacks the pieces it receives, in source
+    order, on a new ``concat_axis``.  Each piece is one :func:`hop`, so the
+    exchange is differentiable (its gradient is the transposed exchange, as
+    copies) and counts each rank's whole payload under ``"all_to_all"``,
+    the piece it keeps included: what the byte twin
+    (``dist.ep_a2a.a2a_payload_bytes``) prices per rank.  The exchange is
+    the profiler range ``dist.all_to_all``."""
+    n = len(xs)
+    for x in xs:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all over {n} ranks: split axis "
+                             f"{split_axis} of {tuple(x.shape)} is not {n}")
+    with record_function("dist.all_to_all"):
+        pieces = [x.unbind(split_axis) for x in xs]
+        return [torch.stack([hop(pieces[j][r], devices[r], "all_to_all")
+                             for j in range(n)], dim=concat_axis)
+                for r in range(n)]

@@ -35,8 +35,10 @@ With ``--smoke`` the model is the JAX benchmark's reduced variant (4 layers,
 d_model 256, 8/4 heads of 32, vocab 2048, fp32, no remat; the MoE keeps the
 smoke config's 4 experts, top-2; seq 128, batch 8); without it, the model
 at full width on one microbatch of ``chip_smoke.py``'s train cell.  The
-MoE model runs only reduced: qwen3-moe-235b-a22b's training state (~3.8 TB)
-needs expert parallelism (ROADMAP.md, A6 part 2).
+MoE model runs only reduced: qwen3-moe-235b-a22b's training state at its 94
+layers (~0.6 TB in bf16) does not fit one card, even with its experts
+sharded over logical ranks there (``dist.ep_a2a``); it needs several cards
+(ROADMAP.md, A16: a multi-card backend).
 """
 from __future__ import annotations
 
@@ -303,7 +305,7 @@ def main(argv=None) -> None:
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family == "moe" and not args.smoke:
         ap.error(f"{args.arch} at full width needs expert parallelism "
-                 "(ROADMAP.md, A6 part 2); pass --smoke")
+                 "over several cards (ROADMAP.md, A16); pass --smoke")
     # the JAX benchmark's cell with --smoke; one microbatch of the train
     # cell of chip_smoke.py without
     row = run(cfg, seq=128 if args.smoke else 2048,

@@ -12,13 +12,22 @@ pipeline (``repro_torch.data``), bit-equal to the JAX package's batches.
         --smoke --device cpu --steps 3 --seq 64 --batch 8 \\
         --ranks 4 --pp 2 --microbatches 2 --compression int8
 
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen3-moe-235b-a22b --smoke --device cpu --steps 2 \\
+        --ranks 4 --moe-impl ep_a2a
+
 Strategies run over a mesh of ``--ranks`` logical ranks
-(``repro_torch.dist.mesh``; default: one per visible CUDA device, or 1):
-``--pp N`` runs the real model through the scheduled pipeline executor on a
-(data = ranks / N, stage = N) mesh (``--pp-schedule``, ``--vstages``,
-``--microbatches``), ``--compression int8`` reduces the gradients over the
-data ranks with int8 payloads and error feedback, ``--overlap-buckets``
-buckets that reduction.  The ranks of one card run one after another, so
+(``repro_torch.dist.mesh``; default: one per visible CUDA device, or 1).
+Without ``--pp`` the mesh is (data = ranks, model = 1), and the launcher's
+sharding context (``models.sharding``) runs ``--moe-impl ep_a2a`` MoE
+layers expert-parallel over its data ranks (``dist.ep_a2a``): it prints the
+per-rank all-to-all payload (``[comm]``) and, after training, how many MoE
+calls took each path (``[moe]``).  ``--pp N`` runs the real model through
+the scheduled pipeline executor on a (data = ranks / N, stage = N) mesh
+(``--pp-schedule``, ``--vstages``, ``--microbatches``), ``--compression
+int8`` reduces the gradients over the data ranks with int8 payloads and
+error feedback, ``--overlap-buckets`` buckets that reduction; the
+pipelined and the compressed steps run MoE through its einsum path.  The ranks of one card run one after another, so
 the step time there is not a multi-card time.  Before training the launcher
 prints the simulated plan (``[pp-plan]``), the byte parity of the simulated
 graph against the executor (``[pp-parity]``; it raises on a mismatch) and
@@ -37,6 +46,7 @@ families, as the reference's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -44,7 +54,10 @@ import torch
 from repro_torch.configs.base import ShapeConfig, get_config, smoke_variant
 from repro_torch.data import make_train_iterator
 from repro_torch.device import resolve_device
+from repro_torch.dist import mesh as M
 from repro_torch.models import build_model
+from repro_torch.models.moe import EP_CALLS, reset_ep_calls
+from repro_torch.models.sharding import make_ctx, use_sharding
 from repro_torch.obs.record import Recorder
 from repro_torch.optim import cosine_with_warmup, make_optimizer
 from repro_torch.train.step import (
@@ -66,8 +79,9 @@ def default_ranks(device) -> int:
 
 
 def build_mesh(ranks: int, pp: int = 0, device="cuda"):
-    """(data,) mesh of ``ranks`` ranks; ``pp >= 1`` builds the (data,
-    stage) pipeline mesh with ``pp`` stage ranks instead."""
+    """(data, model) mesh of ``ranks`` x 1 ranks (the reference's GSPMD
+    mesh); ``pp >= 1`` builds the (data, stage) pipeline mesh with ``pp``
+    stage ranks instead."""
     from repro_torch.dist.mesh import make_mesh
 
     if pp >= 1:
@@ -76,7 +90,7 @@ def build_mesh(ranks: int, pp: int = 0, device="cuda"):
                 f"--pp {pp} needs a rank count divisible by it (have "
                 f"{ranks})")
         return make_mesh((ranks // pp, pp), ("data", "stage"), device)
-    return make_mesh((ranks,), ("data",), device)
+    return make_mesh((ranks, 1), ("data", "model"), device)
 
 
 def comm_report(cfg, mesh, params, *, batch: int, seq: int,
@@ -84,7 +98,10 @@ def comm_report(cfg, mesh, params, *, batch: int, seq: int,
     """Log the per-step gradient all-reduce volume on this mesh: raw
     against int8-compressed, through the executor byte twin
     (``compressed_psum_bytes``) the simulator's annotated graph resolves
-    to."""
+    to; and, for ep_a2a MoE configs, the per-rank payload of one dispatch
+    all-to-all (``dist.ep_a2a.moe_a2a_bytes``) at the compute dtype's
+    itemsize, the one the strategy graph prices (the reference's line
+    uses 4 bytes whatever the dtype: ROADMAP.md, C9)."""
     from repro_torch.dist.compress import compressed_psum_bytes
 
     dp = mesh.sizes.get("data", 1)
@@ -96,6 +113,17 @@ def comm_report(cfg, mesh, params, *, batch: int, seq: int,
         f"an int8+feedback ring would move {int8 / 2**20:.1f} MiB "
         f"({raw / int8:.1f}x less){active}"
     )
+    if cfg.moe is not None and cfg.moe.impl == "ep_a2a":
+        from repro_torch.dist.ep_a2a import moe_a2a_bytes
+        from repro_torch.models.layers import dtype_of
+
+        tokens_local = batch // max(dp, 1) * seq
+        itemsize = dtype_of(cfg.compute_dtype).itemsize
+        a2a = moe_a2a_bytes(cfg.moe, tokens_local, cfg.d_model, itemsize)
+        log_fn(
+            f"[comm] moe ep_a2a dispatch/layer: {a2a / 2**20:.2f} MiB "
+            f"per device each way ({tokens_local} local tokens)"
+        )
 
 
 def pipeline_plan_report(cfg, *, pp: int, schedule: str, vstages: int,
@@ -234,6 +262,7 @@ def train(
     else:
         mesh = build_mesh(ranks, device=dev)
     dp = mesh.sizes["data"]
+    ctx = make_ctx(mesh, overrides=cfg.sharding_overrides)
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer)
     sched = cosine_with_warmup(lr, warmup, max(steps, warmup + 1))
@@ -248,50 +277,54 @@ def train(
                f"dp{dp}xpp{plan.pp} ({micro_bs} seqs/microbatch)")
         pipeline_parity_report(plan, micro_batch=micro_bs, seq=seq, dp=dp,
                                compression=compression, log_fn=log_fn)
-    state = init_state(model, torch.Generator(device=dev).manual_seed(seed),
-                       opt, compression=compression, dp=dp)
-    comm_report(cfg, mesh, state.params, batch=batch, seq=seq,
-                compression=compression, log_fn=log_fn)
-    data = make_train_iterator(cfg, shape, seed=seed)
-    rec = Recorder(enabled=False)
-    losses = []
-    from repro_torch.dist import mesh as M
-
-    M.reset_traffic()
-    t_train0 = rec.clock()
-    try:
-        for i in range(steps):
-            host_batch = next(data)
-            dev_batch = {k: torch.as_tensor(v, device=dev)
-                         for k, v in host_batch.items()}
-            events = None
-            if dev.type == "cuda":
-                events = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                events[0].record()
-            state, metrics, loss, dt = run_timed_step(
-                step_fn, state, dev_batch, rec, f"train_step{i}",
-                role="step", step=i)
-            record = {"loss": loss, "grad_norm": float(metrics["grad_norm"]),
-                      "lr": float(metrics["lr"]), "host_ms": 1e3 * dt,
-                      "device_ms": None}
-            if events is not None:
-                events[1].record()
-                events[1].synchronize()
-                record["device_ms"] = events[0].elapsed_time(events[1])
-            record.update({k: float(metrics[k]) for k in ("ce", "aux")})
-            losses.append(loss)
-            if on_step is not None:
-                on_step(i, record)
-            if (i + 1) % log_every == 0 or i == 0:
-                log_fn(
-                    f"[step {i + 1:5d}] loss={loss:.4f} "
-                    f"gnorm={record['grad_norm']:.3f} "
-                    f"lr={record['lr']:.2e} {record['host_ms']:.0f}ms "
-                    f"{batch * seq / dt:,.0f} tok/s"
-                )
-    finally:
-        data.close()
+    # init and the steps under the sharding context: ep_a2a MoE layers
+    # run expert-parallel over the mesh (models.moe)
+    with use_sharding(ctx):
+        state = init_state(model,
+                           torch.Generator(device=dev).manual_seed(seed),
+                           opt, compression=compression, dp=dp)
+        comm_report(cfg, mesh, state.params, batch=batch, seq=seq,
+                    compression=compression, log_fn=log_fn)
+        data = make_train_iterator(cfg, shape, seed=seed)
+        rec = Recorder(enabled=False)
+        losses = []
+        M.reset_traffic()
+        reset_ep_calls()
+        t_train0 = rec.clock()
+        try:
+            for i in range(steps):
+                host_batch = next(data)
+                dev_batch = {k: torch.as_tensor(v, device=dev)
+                             for k, v in host_batch.items()}
+                events = None
+                if dev.type == "cuda":
+                    events = [torch.cuda.Event(enable_timing=True)
+                              for _ in range(2)]
+                    events[0].record()
+                state, metrics, loss, dt = run_timed_step(
+                    step_fn, state, dev_batch, rec, f"train_step{i}",
+                    role="step", step=i)
+                record = {"loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]), "host_ms": 1e3 * dt,
+                          "device_ms": None}
+                if events is not None:
+                    events[1].record()
+                    events[1].synchronize()
+                    record["device_ms"] = events[0].elapsed_time(events[1])
+                record.update({k: float(metrics[k]) for k in ("ce", "aux")})
+                losses.append(loss)
+                if on_step is not None:
+                    on_step(i, record)
+                if (i + 1) % log_every == 0 or i == 0:
+                    log_fn(
+                        f"[step {i + 1:5d}] loss={loss:.4f} "
+                        f"gnorm={record['grad_norm']:.3f} "
+                        f"lr={record['lr']:.2e} {record['host_ms']:.0f}ms "
+                        f"{batch * seq / dt:,.0f} tok/s"
+                    )
+        finally:
+            data.close()
     wall = rec.clock() - t_train0
     if plan is not None:
         moved = M.TRAFFIC.get("ppermute", 0) / (steps * dp * grad_accum)
@@ -301,6 +334,10 @@ def train(
         if moved != want:
             raise AssertionError(f"executed boundary bytes {moved} != twin "
                                  f"{want}")
+    if cfg.moe is not None:     # which path each MoE layer took
+        log_fn(f"[moe] impl={cfg.moe.impl}: MoE calls by path over {steps} "
+               f"steps of {cfg.num_layers} layers (forward and remat "
+               f"recompute): {dict(sorted(EP_CALLS.items()))}")
     log_fn(f"[done] {steps} steps in {wall:.1f}s; "
            f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     return state, losses
@@ -343,6 +380,16 @@ def main(argv=None) -> None:
                     default=0,
                     help=">= 2: reduce the gradients in this many "
                          "reverse-order buckets (bit-exact)")
+    ap.add_argument("--moe-impl", dest="moe_impl",
+                    choices=["einsum", "ep_a2a"], default=None,
+                    help="MoE execution strategy (ep_a2a = explicit "
+                         "all-to-all expert parallelism over the data "
+                         "ranks, repro_torch.dist.ep_a2a)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="override num_layers")
+    ap.add_argument("--d-model", dest="d_model", type=int, default=0,
+                    help="override d_model (head_dim follows: d_model / "
+                         "num_heads)")
     # refused until ported (see _NOT_PORTED)
     ap.add_argument("--ckpt-dir", dest="ckpt_dir", default=None)
     ap.add_argument("--obs", action="store_true")
@@ -351,6 +398,14 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_variant(cfg)
+    if args.moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, impl=args.moe_impl))
+    if args.d_model:
+        cfg = dataclasses.replace(cfg, d_model=args.d_model,
+                                  head_dim=args.d_model // cfg.num_heads)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     pipeline_on = args.pp > 1 or args.vstages > 1
     if pipeline_on:
         pipeline_plan_report(

@@ -133,6 +133,9 @@ def init_rmsnorm(d: int, dtype, device) -> torch.Tensor:
     return torch.ones((d,), dtype=dtype_of(dtype), device=device)
 
 
+RMSNORM_AXES = ("embed",)
+
+
 def rmsnorm(x, scale, eps: float = 1e-5, compute_dtype=torch.bfloat16):
     """fp32 statistics, output in the compute dtype (the layer's contract;
     the bare kernel op defaults to ``x.dtype``)."""
@@ -182,6 +185,22 @@ def init_attention(gen: torch.Generator, cfg) -> dict:
         params["bk"] = torch.zeros((K, hd), dtype=pdt, device=dev)
         params["bv"] = torch.zeros((K, hd), dtype=pdt, device=dev)
     return params
+
+
+def attention_axes(cfg) -> dict:
+    """The logical axes of :func:`init_attention`'s leaves (the second
+    value of the JAX package's ``init_attention``)."""
+    axes = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qkv_bias:
+        axes["bq"] = ("heads", "head_dim")
+        axes["bk"] = ("kv_heads", "head_dim")
+        axes["bv"] = ("kv_heads", "head_dim")
+    return axes
 
 
 def _project_qkv(p, x, cfg, positions):
@@ -339,6 +358,10 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype) -> dict:
     }
 
 
+MLP_AXES = {"wg": ("embed", "ffn"), "wu": ("embed", "ffn"),
+            "wd": ("ffn", "embed")}
+
+
 def mlp(p, x, compute_dtype):
     cdt = dtype_of(compute_dtype)
     g = proj(x, p["wg"].to(cdt))
@@ -354,6 +377,9 @@ def mlp(p, x, compute_dtype):
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype):
     return _init_dense(gen, (vocab, d), d, dtype)
+
+
+EMBED_AXES = ("vocab", "embed")
 
 
 def embed(emb, tokens, compute_dtype):

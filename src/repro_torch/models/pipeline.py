@@ -14,8 +14,9 @@ A :class:`PipelinePlan` names the partition: ``pp`` stage ranks times
 with the first virtual stage (``first_fn``) and the final norm + lm head +
 cross-entropy with the last (``loss_fn``), so every parameter's gradient —
 embedding and head included — comes out of the scheduled backward.  MoE
-router auxiliary losses are emitted per block and seeded locally.  MoE runs
-its einsum FFN (``ep = 1``); expert parallelism is not ported.
+router auxiliary losses are emitted per block and seeded locally.  The
+stages run without a sharding context, so MoE takes its einsum FFN, as the
+reference's stages do inside ``shard_map``.
 
 Loss convention: one pipeline step trains the *mean* over its
 ``microbatches`` of the model's per-microbatch loss — what
@@ -44,9 +45,6 @@ from repro_torch.tree import tree_map
 # executor can chunk (vlm is excluded: the patch projector makes the first
 # stage's input heterogeneous; hybrid/ssm mixers are not partitioned)
 _PIPELINE_FAMILIES = ("dense", "moe")
-
-_EP = ("expert parallelism is not ported (ROADMAP.md, A6 part 2): the "
-       "pipeline runs MoE with its einsum FFN at ep = 1")
 
 
 @dataclass(frozen=True)
@@ -128,11 +126,8 @@ def check_pipelineable(cfg: ArchConfig, pp_stages: int,
 
 
 def make_plan(cfg: ArchConfig, pp_stages: int, microbatches: int,
-              schedule: str = "1f1b", vstages: int = 1,
-              ep: int = 1) -> PipelinePlan:
+              schedule: str = "1f1b", vstages: int = 1) -> PipelinePlan:
     """Validated plan: partitionable config AND realizable schedule."""
-    if ep > 1:
-        raise NotImplementedError(f"ep={ep}: {_EP}")
     check_pipelineable(cfg, pp_stages, vstages)
     plan = PipelinePlan(
         cfg=cfg, pp=pp_stages, microbatches=microbatches,

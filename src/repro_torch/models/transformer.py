@@ -20,6 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import sharding as S
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -39,6 +40,19 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     else:
         params["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
     return params
+
+
+def block_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_block`'s leaves."""
+    axes = {"attn": L.attention_axes(cfg), "norm1": L.RMSNORM_AXES,
+            "norm2": L.RMSNORM_AXES}
+    if cfg.moe is not None and cfg.moe.every_k == 1:
+        axes["moe"] = M.moe_axes(cfg.moe)
+        if cfg.moe.num_shared_experts:
+            axes["shared_mlp"] = dict(L.MLP_AXES)
+    else:
+        axes["mlp"] = dict(L.MLP_AXES)
+    return axes
 
 
 def _stack(trees: list):
@@ -74,6 +88,20 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
                                 cfg.param_dtype),
         }
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_params`'s leaves: the axes tree the
+    JAX package's ``init_params`` returns beside the parameters."""
+    axes = {"embed": L.EMBED_AXES,
+            "blocks": _prefix_layers(block_axes(cfg)),
+            "final_norm": L.RMSNORM_AXES}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    if cfg.num_patches:
+        axes["projector"] = {"w1": ("frontend", "embed"),
+                             "w2": ("embed", "embed")}
+    return axes
 
 
 def layer(blocks: dict, i: int) -> dict:
@@ -115,8 +143,17 @@ def _remat(fn, cfg: ArchConfig):
     dots = cfg.remat_policy == "dots"
 
     def run(*args):
-        return checkpoint(L.dots_saved(fn) if dots else fn, *args,
-                          use_reentrant=False)
+        # the recompute runs inside the backward, on the autograd engine's
+        # thread for CUDA tensors, where the thread-local sharding context
+        # is unset: it re-enters the context of the forward
+        ctx = S.current_ctx()
+        body = L.dots_saved(fn) if dots else fn
+
+        def under_ctx(*a):
+            with S.use_sharding(ctx):
+                return body(*a)
+
+        return checkpoint(under_ctx, *args, use_reentrant=False)
 
     return run
 

@@ -1,6 +1,6 @@
 """Measured collective time models: the fitted models and the pricing chain
 (exact DB hit -> fitted CollectiveModel -> ring fallback).  The sweep that
-measures them is not ported yet (ROADMAP, A6 part 2)."""
+measures them is not ported yet (ROADMAP, A14)."""
 from repro_torch.netprof.model import (  # noqa: F401
     COLLECTIVES,
     CollectiveModel,

@@ -33,14 +33,18 @@ def global_norm(tree) -> torch.Tensor:
 def clip_by_global_norm(tree, max_norm: float, *, inplace: bool = False):
     """(tree scaled to a global norm of at most ``max_norm``, the norm).
 
-    ``inplace`` scales fp32 leaves in place (the train step owns its
-    gradients); the numbers are the same either way."""
+    ``inplace`` writes the scaled leaves into the given ones (the train
+    step owns its gradients, and a second copy of a bf16 model's gradients
+    would sit beside the first through the optimizer); the numbers are the
+    same either way."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
     def clip(g):
         if inplace and g.dtype == torch.float32:
             return g.mul_(scale)
+        if inplace:
+            return g.copy_((g.float() * scale).to(g.dtype))
         return (g.float() * scale).to(g.dtype)
 
     return tree_map(clip, tree), norm

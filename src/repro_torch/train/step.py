@@ -210,20 +210,24 @@ def make_train_step(
 
         from repro_torch.dist import compress as C
         from repro_torch.dist import mesh as M
+        from repro_torch.models.sharding import use_sharding
 
         others = {a: 0 for a in mesh.axis_names if a != axis_name}
         coord = tuple(others.get(a, 0) for a in mesh.axis_names)
         devices = mesh.group_devices(axis_name, coord)
         losses, mets, rank_grads = [], [], []
-        for r, (dev, shard) in enumerate(zip(devices,
-                                             _split_ranks(batch,
-                                                          len(devices)))):
-            rp = _rank_params(params, dev)
-            l, m, g = local_grads(rp, {k: v.to(dev)
-                                       for k, v in shard.items()})
-            losses.append(l)
-            mets.append(m)
-            rank_grads.append(unflatten_like(params, g))
+        # each rank's body runs without the sharding context, as the
+        # reference's shard_map body does: its MoE layers take the einsum
+        # path on the rank's rows
+        with use_sharding(None):
+            for dev, shard in zip(devices, _split_ranks(batch,
+                                                        len(devices))):
+                rp = _rank_params(params, dev)
+                l, m, g = local_grads(rp, {k: v.to(dev)
+                                           for k, v in shard.items()})
+                losses.append(l)
+                mets.append(m)
+                rank_grads.append(unflatten_like(params, g))
         with record_function("train_step.reduce"):
             if compression is not None:
                 res = [tree_map(lambda x, r=r: x[r], comp_state)
@@ -314,6 +318,7 @@ def make_pipeline_train_step(
         partition_params,
         stage_fns,
     )
+    from repro_torch.models.sharding import use_sharding
 
     cfg = model.cfg
     compression = _normalize_compression(compression)
@@ -342,6 +347,12 @@ def make_pipeline_train_step(
         return merged
 
     def train_step(state: TrainState, batch: dict):
+        # the stages run without the sharding context, as the reference's
+        # shard_map body does: MoE layers take the einsum path
+        with use_sharding(None):
+            return pipeline_step(state, batch)
+
+    def pipeline_step(state: TrainState, batch: dict):
         params = state.params
         first, blocks, last = partition_params(cfg, params)
         (B,) = {v_.shape[0] for v_ in batch.values()}
@@ -440,7 +451,9 @@ def make_sharded_train_step(
     """The train step for a mesh — the launcher's entry point.
 
     Dense training returns the plain step on the whole batch (the
-    reference's GSPMD step: the same mean).  Compressed training needs each
+    reference's GSPMD step: the same mean); under the launcher's sharding
+    context (``models.sharding.use_sharding``) its ``ep_a2a`` MoE layers
+    run expert-parallel over the mesh.  Compressed training needs each
     rank's gradient, so the step splits the batch over ``axis_name``'s
     ranks (:func:`make_train_step` with ``axis_name``).  With a ``pipeline``
     plan (``models.pipeline.PipelinePlan``) the step runs the real model

@@ -609,3 +609,40 @@ def test_compressed_pp_dp_step_on_card_trains(dev):
         losses.append(float(m["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     assert max(float(r.abs().max()) for r in leaves(state.comp_state)) > 0
+
+
+def test_ep_recompute_on_the_autograd_thread_takes_ep(dev):
+    """On the card autograd runs the backward, and a "full" remat's
+    recompute, on its own device thread, where the thread-local sharding
+    context is unset: the recompute must re-enter the forward's context and
+    take EP again.  The smoke qwen3-moe (fp32) through EP on 4 logical
+    ranks: every MoE call EP, loss and gradients equal the einsum path's."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import make_ctx, use_sharding
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = smoke_variant(get_config("qwen3-moe-235b-a22b"))
+    cfg = dataclasses.replace(cfg, num_layers=2, moe=dataclasses.replace(
+        cfg.moe, impl="ep_a2a"))
+    assert cfg.remat_policy == "full"
+    model = build_model(cfg)
+    params = tree_map(lambda t: t.requires_grad_(), model.init(
+        torch.Generator(device=dev).manual_seed(0)))
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(1, cfg.vocab_size, (8, 64), generator=g,
+                              device=dev) for k in ("tokens", "labels")}
+    ctx = make_ctx(make_mesh((4, 1), ("data", "model"), dev))
+    moe.reset_ep_calls()
+    with use_sharding(ctx):
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, leaves(params))
+    assert moe.EP_CALLS == {"ep_a2a": 2 * cfg.num_layers}
+    loss_e, _ = model.loss(params, batch)
+    grads_e = torch.autograd.grad(loss_e, leaves(params))
+    torch.testing.assert_close(loss.detach(), loss_e.detach(), rtol=1e-5,
+                               atol=1e-5)
+    for a, b in zip(grads, grads_e):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -14,6 +14,7 @@
 Weights cross from the JAX package's init through ``load_jax_params``.
 """
 import dataclasses
+import inspect
 
 import pytest
 
@@ -141,8 +142,9 @@ def test_partition_roundtrip_and_guards():
     with pytest.raises(ValueError, match="vlm|patch"):
         port_pipe.check_pipelineable(port_configs.smoke_variant(
             port_configs.get_config("pixtral-12b")), 2)
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        port_pipe.make_plan(cfg, 2, 2, ep=2)
+    # the reference's signature: no expert-parallel width in a pipeline plan
+    assert list(inspect.signature(port_pipe.make_plan).parameters) == \
+        list(inspect.signature(jax_pipe.make_plan).parameters)
     jplan = jax_pipe.make_plan(_tiny(jax_configs, "llama3.2-1b"), 2, 4,
                                schedule="interleaved_1f1b", vstages=2)
     tplan = port_pipe.make_plan(cfg, 2, 4, schedule="interleaved_1f1b",
@@ -278,17 +280,27 @@ def test_model_graph_bytes_equal_executor_and_jax_twins():
 
 
 def test_estimator_resolves_annotations_and_refuses_moe_a2a():
+    """Every ``moe_a2a`` node of a pp x dp ep_a2a plan is priced exactly as
+    ``repro.core.estimator.dist_comm_bytes`` prices the JAX graph's node of
+    the same name; the other annotations resolve and price."""
     from repro_torch.core.hardware import TPU_V5E
 
     cfg = _tiny(port_configs, "qwen3-moe-235b-a22b")
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                            impl="ep_a2a"))
+    jcfg = _tiny(jax_configs, "qwen3-moe-235b-a22b")
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(jcfg.moe,
+                                                             impl="ep_a2a"))
     plan = port_pipe.make_plan(cfg, 2, 2, schedule="1f1b")
+    jplan = jax_pipe.make_plan(jcfg, 2, 2, schedule="1f1b")
     g = port_strategy.model_pipeline_graph(cfg, plan.strategy(dp=2), 2, 16)
+    jg = jax_strategy.model_pipeline_graph(jcfg, jplan.strategy(dp=2), 2, 16)
+    jnodes = {n.name: n for n in jg.nodes}
     a2a = [n for n in g.nodes if n.kind == "all-to-all"]
-    assert a2a
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        port_est.dist_comm_bytes(a2a[0])
+    assert a2a and len(a2a) == sum(n.kind == "all-to-all" for n in jg.nodes)
+    for n in a2a:
+        assert port_est.dist_comm_bytes(n) == \
+            jax_est.dist_comm_bytes(jnodes[n.name]) > 0
     est = port_est.OpTimeEstimator(TPU_V5E)
     g1 = port_strategy.model_pipeline_graph(
         cfg, plan.strategy(dp=2, compression="int8"), 2, 16)

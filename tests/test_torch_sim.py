@@ -172,17 +172,27 @@ def test_h100_sxm_data_sheet_figures():
 
 
 def test_unported_estimator_stages_raise():
+    """Every estimator stage builds and every annotated collective prices:
+    the learned stage (tests/test_torch_simtrain.py), the compressed
+    all-reduce's int8 payload, and the expert-parallel all-to-all, whose
+    duration equals the JAX estimator's on the same node."""
+    from repro.core.strategy import moe_a2a_node_meta
+
     _, _, db, _ = _port_side()
-    # the learned stage is ported (tests/test_torch_simtrain.py): it builds
     OpTimeEstimator(port_hw.CPU_HOST, db=db, use_learned=True)
-    # the compressed all-reduce's byte twin is ported: it prices the int8
-    # payload; the expert-parallel all-to-all's is not (ROADMAP A6 part 2)
     est = OpTimeEstimator(port_hw.CPU_HOST, db=None, use_learned=False)
+    jest = JaxEstimator(jax_hw.CPU_HOST, db=None, use_learned=False)
     g = port_graph.DataflowGraph("g")
+    jg = jax_graph.DataflowGraph("g")
     node = g.add("ar", "all-reduce", comm_bytes=1e6, group_size=2,
                  link_kind="ici", meta={"compression": "int8"})
     assert est.duration(node) > 0
+    moe = jax_configs.MoEConfig(num_experts=4, top_k=2, d_ff_expert=64,
+                                group_size=32)
+    meta = moe_a2a_node_meta(moe, 64, 128, itemsize=2)
     a2a = g.add("a2a", "all-to-all", comm_bytes=1e6, group_size=2,
-                link_kind="ici", meta={"moe_a2a": {"num_experts": 4}})
-    with pytest.raises(NotImplementedError, match="A6 part 2"):
-        est.duration(a2a)
+                link_kind="ici", meta=meta)
+    ja2a = jg.add("a2a", "all-to-all", comm_bytes=1e6, group_size=2,
+                  link_kind="ici", meta=meta)
+    assert est.duration(a2a) > 0
+    assert est.duration(a2a) == jest.duration(ja2a)

@@ -93,18 +93,32 @@ def test_model_pipeline_graph_and_layer_cost_equal_reference(arch):
 
 
 def test_estimator_resolves_compression_and_pp_hop_refuses_moe_a2a():
+    """The estimator resolves every annotation of an ep_a2a MoE plan: the
+    int8 all-reduce, the pipeline hop, and each ``moe_a2a`` node exactly as
+    the JAX estimator prices the same node of the JAX graph."""
     tcfg = port_configs.smoke_variant(port_configs.get_config(
         "qwen3-moe-235b-a22b"))
     tcfg = dataclasses.replace(tcfg, moe=dataclasses.replace(
         tcfg.moe, impl="ep_a2a"))
+    jcfg = jax_configs.smoke_variant(jax_configs.get_config(
+        "qwen3-moe-235b-a22b"))
+    jcfg = dataclasses.replace(jcfg, moe=dataclasses.replace(
+        jcfg.moe, impl="ep_a2a"))
     g = port_strategy.model_pipeline_graph(
         tcfg, port_strategy.Strategy(dp=2, pp=2, microbatches=2,
                                      compression="int8"), 2, 32)
+    jg = jax_strategy.model_pipeline_graph(
+        jcfg, jax_strategy.Strategy(dp=2, pp=2, microbatches=2,
+                                    compression="int8"), 2, 32)
+    jnodes = {n.name: n for n in jg.nodes}
     kinds = {}
     for n in g.nodes:
         if n.meta.get("moe_a2a"):
-            with pytest.raises(NotImplementedError, match="A6 part 2"):
-                port_est.dist_comm_bytes(n)
+            want = jax_est.dist_comm_bytes(jnodes[n.name])
+            assert port_est.dist_comm_bytes(n) == want
+            # 4 experts, top-2, groups of 32 at cf 1.25 (C = 20), 64 local
+            # tokens of d_model 128 in fp32
+            assert want == 4 * 2 * 20 * 128 * 4
             kinds["a2a"] = True
         elif n.meta.get("pp_hop"):
             assert port_est.dist_comm_bytes(n) == 2 * 32 * tcfg.d_model * 4

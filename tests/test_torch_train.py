@@ -101,6 +101,21 @@ def test_clip_by_global_norm_matches_jax(max_norm):
     _close_trees(ic, jc, rtol=1e-6, atol=1e-8)
 
 
+def test_clip_in_place_keeps_bf16_leaves_and_numbers():
+    """In place, a bf16 leaf is written into itself (no second copy of a
+    bf16 model's gradients) with the out-of-place numbers, bit for bit."""
+    g = torch.randn(64, 32, generator=torch.Generator().manual_seed(0))
+    tree = {"w": g.to(torch.bfloat16), "b": g[0].clone()}
+    want, wn = optim.clip_by_global_norm(
+        {k: v.clone() for k, v in tree.items()}, 0.5)
+    before = tree["w"]
+    got, gn = optim.clip_by_global_norm(tree, 0.5, inplace=True)
+    assert got["w"] is before and got["w"].dtype == torch.bfloat16
+    assert float(gn) == float(wn) and float(gn) > 0.5
+    for k in want:
+        assert torch.equal(got[k], want[k])
+
+
 @pytest.mark.parametrize("kind", ["cosine", "linear"])
 def test_schedules_match_jax(kind):
     args = (3e-4, 5, 40)
