@@ -7,6 +7,9 @@
                                            # remat and pp phases
     python3 chip_smoke.py --only ep        # kernels' checks, then the
                                            # expert-parallel phases
+    python3 chip_smoke.py --only obs       # kernels' checks, then the
+                                           # sharded decode, the launchers'
+                                           # --obs / --analyze, pp-train
 
 Phases, each printing one line of numbers:
 
@@ -169,7 +172,32 @@ Phases, each printing one line of numbers:
              recompute);
 26. ep-plan — the EP layer profiled on the card, the cell's strategy
              simulated on 4 H100 SXM with its all-to-all share;
-27. a JSON line of every kernel at the serve and train shapes: launches on
+27. serve-shard — phase 4's model, trace and engine shape with the decode
+             slot-sharded over 4 logical ranks of the card (2 of the 8
+             slots a rank, each rank's decode a forward, in turn):
+             ``calibrate_serve(mesh=)`` (two passes), the engine (launches
+             asserted), the replay twin (compositions equal) and the
+             priced twin; the sharded decode's logits against the
+             unsharded decode's on one fixed mid-run batch (limit
+             ``SHARD["tol"]`` of the logits' scale; argmax equal where the
+             top-2 margin exceeds the error), both beside the fp32 decode;
+28. serve-obs — the serve launcher (``main(argv)``) on that trace and DB
+             with ``--shard --ranks 4 --obs --trace-out --parity``: the
+             divergence report (no unmatched span or node), its provenance
+             classes, the overlay parsed as a Chrome trace, compositions
+             equal;
+29. serve-analyze — the launcher's ``--analyze`` on the same trace and DB:
+             no error-level finding;
+30. serve-shard-profile — the decode step's host wall and the card's busy
+             time, unsharded and sharded (after the launcher phases: a
+             profiler session slows later launches);
+31. pp-analyze, pp-obs — phase 19 runs with the launcher's ``--analyze``
+             (the plan verified before the first step) and ``--obs``
+             (after the last: every F, B, send and gradAR node of the
+             plan replayed on the card under its uid, none skipped, the
+             divergence report and the overlay; the replay's launches
+             counted apart from the steps');
+32. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -205,6 +233,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -388,6 +417,17 @@ EP_FFN_MESHES = ((4, 1), (2, 2))
 # exchanges (dispatch, return) x 4 ranks x one rank's payload of 128
 # experts x 4 groups x 40 slots x 4096 x 2 bytes (bf16)
 EP_A2A_FORWARD_BYTES = 2 * 2 * 4 * 167_772_160
+# [serve-shard]: the serve cell with its decode slot-sharded over 4 logical
+# ranks of the card (2 of the 8 slots a rank).  Its logits against the
+# unsharded decode's on one fixed mid-run batch (the pool's K/V and the
+# tokens drawn from ``seed``), and both against the same decode in fp32
+# compute; limit relative to the logits' scale: twice the largest error
+# measured on the H100 (1.75 % of the scale, sharded against unsharded:
+# 2-row and 8-row bf16 GEMMs take other cuBLAS kernels through 16 layers);
+# the decode step's busy and wall time over ``steps`` steps, sharded and
+# not, measured after the launcher phases (a torch.profiler session slows
+# the host's later launches)
+SHARD = dict(ranks=4, tol=4e-2, seed=2, steps=5)
 # [autotune]: llama3.2-1b on 8 H100 SXM at PP's global batch; the layer is
 # profiled on the card at every microbatch size a candidate can have
 AUTOTUNE = dict(chips=8, micro_batches=(1, 2, 4, 8))
@@ -705,6 +745,28 @@ def ssd_stage_checks(dev, gen) -> list:
 # -- phase 4: serve at full width -----------------------------------------------
 
 
+def serve_trace():
+    """The serve cell's open-loop Poisson trace (``TRACE``)."""
+    from repro_torch.serve.trace import poisson_trace
+
+    return poisson_trace(TRACE["n"], TRACE["rate"],
+                         prompt_lens=TRACE["prompt_lens"],
+                         max_new_tokens=TRACE["max_new_tokens"],
+                         seed=TRACE["seed"])
+
+
+def trace_context(trace, scfg) -> int:
+    """The mean context of the trace's decode tokens, where the steps are
+    timed: the attention kernel's work follows the context, and at 0 (the
+    JAX package's choice) a decode step does almost no attention."""
+    import numpy as np
+
+    return round(float(np.mean([
+        t.prompt_len + i for t in trace
+        for i in range(scfg.effective_max_tokens(t.prompt_len,
+                                                 t.max_new_tokens))])))
+
+
 def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
     """``cfg`` served at full width (calibrate, engine, twins), as the
     ``serve`` phase describes; for a dense model also its chunked prefill
@@ -726,7 +788,7 @@ def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
         latency_report, records_from_requests, serve_parity_report,
     )
     from repro_torch.serve.sim import replay_schedule, simulate_serve
-    from repro_torch.serve.trace import poisson_trace, prompt_tokens
+    from repro_torch.serve.trace import prompt_tokens
 
     platform = platform_for_device(torch.cuda.get_device_name(dev))
     scfg = ServeConfig(**SERVE)
@@ -736,17 +798,8 @@ def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
 
-    trace = poisson_trace(TRACE["n"], TRACE["rate"],
-                          prompt_lens=TRACE["prompt_lens"],
-                          max_new_tokens=TRACE["max_new_tokens"],
-                          seed=TRACE["seed"])
-    # the steps are timed at the mean context of the trace's decode tokens:
-    # the attention kernel's work follows the context, and at 0 (the JAX
-    # package's choice) a decode step does almost no attention
-    context = round(float(np.mean([
-        t.prompt_len + i for t in trace
-        for i in range(scfg.effective_max_tokens(t.prompt_len,
-                                                 t.max_new_tokens))])))
+    trace = serve_trace()
+    context = trace_context(trace, scfg)
 
     # two calibration passes: the first also warms the host up (the steps
     # are host-bound and their times drift down over the first seconds);
@@ -995,9 +1048,10 @@ def mid_run_lengths(ctx: dict) -> list:
 # -- phase 5: where a decode step's time goes -----------------------------------
 
 
-def decode_step(dev, ctx: dict, lengths: list):
+def decode_step(dev, ctx: dict, lengths: list, mesh=None):
     """One full decode step (argmax readback included) with the lanes at
-    ``lengths``, each lane on its own blocks."""
+    ``lengths``, each lane on its own blocks; slot-sharded over ``mesh``
+    where one is given, as the engine runs it."""
     from repro_torch.serve import paged
 
     cfg, scfg, params = ctx["cfg"], ctx["scfg"], ctx["params"]
@@ -1007,11 +1061,16 @@ def decode_step(dev, ctx: dict, lengths: list):
               + 1)
     toks = torch.ones((s, 1), dtype=torch.int32, device=dev)
     pool = paged.init_pool(cfg, scfg, dev)
+    reps = paged.replicas(params, pool, mesh) if mesh is not None else None
 
     def step():
         with torch.inference_mode():
-            logits, _ = paged.decode_batch(params, pool, toks, lens, tables,
-                                           cfg, scfg)
+            if reps is None:
+                logits, _ = paged.decode_batch(params, pool, toks, lens,
+                                               tables, cfg, scfg)
+            else:
+                logits, _ = paged.decode_slot_sharded(
+                    reps, toks, lens, tables, cfg, scfg, mesh)
             return torch.argmax(logits[:, -1], dim=-1).cpu()
 
     return step
@@ -1042,18 +1101,12 @@ def context_effect(dev, ctx: dict, steps: int = 20) -> None:
           wall_ms=runs, mean_ms={k: sum(v) / len(v) for k, v in runs.items()})
 
 
-def profile_decode(dev, ctx: dict, tag: str = "profile",
-                   steps: int = 5) -> None:
-    """Host wall time of one full decode step against the card's busy time
-    (torch.profiler's kernel durations), at the mid-run lengths.  The idle
-    share is taken over the profiled steps themselves (busy and wall of the
-    same steps; the profiler slows the host); the wall time of as many
-    steps without the profiler is printed beside it."""
+def busy_and_wall(step, steps: int) -> tuple:
+    """``step``'s mean host wall ms over ``steps`` calls (after 3 warm-up
+    calls), the wall ms of as many calls under torch.profiler, the card's
+    busy ms a call in those (the kernels' durations), and the kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    s = ctx["scfg"].slots
-    lengths = mid_run_lengths(ctx)
-    step = decode_step(dev, ctx, lengths)
     for _ in range(3):
         step()
     wall = wall_ms(step, steps)
@@ -1061,11 +1114,26 @@ def profile_decode(dev, ctx: dict, tag: str = "profile",
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = wall_ms(step, steps)
     kernels = device_kernels(prof)
+    busy = sum(float(getattr(e, "device_time_total", 0.0) or 0.0)
+               for e in kernels) / steps / 1e3
+    return wall, wall_prof, busy, kernels
+
+
+def profile_decode(dev, ctx: dict, tag: str = "profile",
+                   steps: int = 5) -> None:
+    """Host wall time of one full decode step against the card's busy time
+    (torch.profiler's kernel durations), at the mid-run lengths.  The idle
+    share is taken over the profiled steps themselves (busy and wall of the
+    same steps; the profiler slows the host); the wall time of as many
+    steps without the profiler is printed beside it."""
+    s = ctx["scfg"].slots
+    lengths = mid_run_lengths(ctx)
+    wall, wall_prof, busy_ms, kernels = busy_and_wall(
+        decode_step(dev, ctx, lengths), steps)
 
     def dev_us(e):
         return float(getattr(e, "device_time_total", 0.0) or 0.0)
 
-    busy_ms = sum(dev_us(e) for e in kernels) / steps / 1e3
     if busy_ms <= 0.0:
         phase(tag, step="decode", lengths=lengths, wall_ms=wall,
               wall_ms_profiled=wall_prof, device_busy_ms="not measured")
@@ -1090,11 +1158,14 @@ def profile_decode(dev, ctx: dict, tag: str = "profile",
 
 
 def kernel_table(dev, gen, ctx: dict, failures: list,
-                 prefix: str = "") -> list:
+                 prefix: str = "", lanes: int = 0,
+                 phases=("decode", "prefill")) -> list:
     """RMSNorm and flash attention at a serve path's decode and prefill
     shapes (``ctx``: the serve phase's, or launches None), each held against
     its plain version (the kernel checks' bf16 tolerances); rows named
-    ``<kernel>@<prefix><decode|prefill>``."""
+    ``<kernel>@<prefix><decode|prefill>``.  ``lanes``: the decode call's
+    batch where it is not all the slots (one rank's of a slot-sharded
+    decode)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import cost as fa_cost
@@ -1114,9 +1185,11 @@ def kernel_table(dev, gen, ctx: dict, failures: list,
     d, h, kh, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     view = scfg.view_len
-    lengths = mid_run_lengths(ctx)
-    shapes = {"decode": (scfg.slots, 1, lengths),
+    lanes = lanes or scfg.slots
+    lengths = mid_run_lengths(ctx)[:lanes]
+    shapes = {"decode": (lanes, 1, lengths),
               "prefill": (1, scfg.chunk, [3 * scfg.chunk])}
+    shapes = {k: shapes[k] for k in phases}
 
     def launches(name: str):
         """The serve run's launches; None where no path was driven."""
@@ -2094,7 +2167,10 @@ def pp_train_phase(dev, failures: list) -> dict:
                 if k in want}
     steps, logs, seen = [], [], {k: 0 for k in counters}
 
+    t_last = [0.0]
+
     def on_step(i, rec):
+        t_last[0] = time.perf_counter()
         rec = dict(rec, step=i + 1, launches={
             k: c.count - seen[k] for k, c in counters.items()},
             tokens_per_s=PP["batch"] * PP["seq"] / (rec["host_ms"] / 1e3),
@@ -2109,8 +2185,18 @@ def pp_train_phase(dev, failures: list) -> dict:
         if rec["peak_gb"] >= 80.0:
             failures.append(f"pp-train step {i + 1}: {rec['peak_gb']} GB")
 
+    obs = {}
+
+    def on_obs(report, counts):
+        obs.update(report=report, counts=counts, t=time.perf_counter(),
+                   launches={k: c.count - seen[k]
+                             for k, c in counters.items()})
+
+    overlay = os.path.join(tempfile.mkdtemp(prefix="pp-obs-"),
+                           "pp_overlay.json")
     torch.cuda.reset_peak_memory_stats(dev)
-    # the main path: counts from zero, read right after
+    # the main path: counts from zero, read right after its last step (the
+    # --obs replay after it launches the kernels again, counted apart)
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
@@ -2119,10 +2205,12 @@ def pp_train_phase(dev, failures: list) -> dict:
         pp=PP["pp"], pp_schedule=PP["schedule"],
         microbatches=PP["microbatches"], compression=PP["compression"],
         ranks=PP["dp"] * PP["pp"], seed=PP["seed"], device=dev,
-        on_step=on_step, log_fn=logs.append)
+        analyze=True, obs=True, trace_out=overlay, on_step=on_step,
+        on_obs=on_obs, log_fn=logs.append)
     wall = time.perf_counter() - t0
-    launches = {k: c.count for k, c in counters.items()}
+    launches = dict(seen)
     traffic = dict(M.TRAFFIC)
+    pp_analyze_obs(obs, logs, overlay, failures)
     if not all(math.isfinite(x) for x in losses):
         failures.append(f"pp-train: non-finite losses {losses}")
     timed = [r["host_ms"] for r in steps[1:]]
@@ -2135,12 +2223,72 @@ def pp_train_phase(dev, failures: list) -> dict:
           * 1e3, max_memory_allocated_gb=max(r["peak_gb"] for r in steps),
           traffic_bytes=traffic, launcher_lines=[
               ln for ln in logs if ln.startswith(("[pp-", "[comm]"))],
-          seconds=wall,
+          seconds=wall, seconds_after_last_step=obs["t"] - t_last[0],
           note="4 logical ranks share one card and run one after another: "
                "not a multi-card step time")
     return {"cfg": cfg, "run": PP, "state": state, "median_s": med / 1e3,
             "last_step_ms": steps[-1]["host_ms"], "traffic": traffic,
             "launches": launches}
+
+
+def chrome_trace_ok(path: str) -> dict:
+    """A Chrome/Perfetto trace file's event counts by track side (``sim:``,
+    ``real:``); raises if it does not parse as one."""
+    with open(path) as f:
+        trace = json.load(f)
+    label = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    sides: dict = {}
+    for e in trace["traceEvents"]:
+        if e.get("ph") == "X":
+            side = label[e["pid"]].split(":", 1)[0]
+            sides[side] = sides.get(side, 0) + 1
+            if not (e["dur"] >= 0 and math.isfinite(e["ts"])):
+                raise ValueError(f"event {e['name']}: ts {e['ts']}, "
+                                 f"dur {e['dur']}")
+    return sides
+
+
+def obs_summary(report) -> dict:
+    """A divergence report's ``obs_*`` metrics, O-codes and provenance
+    classes (real and simulated seconds, relative error)."""
+    d = report.to_dict()
+    return {"metrics": {k: v for k, v in d["metrics"].items()
+                        if k.startswith("obs_")},
+            "codes": sorted(f["code"] for f in d["findings"]),
+            "classes": d["extras"]["obs_diff"]["classes"],
+            "top": [{k: r[k] for k in ("name", "real_s", "sim_s",
+                                       "provenance")}
+                    for r in d["extras"]["obs_diff"]["top"][:5]]}
+
+
+def pp_analyze_obs(obs: dict, logs: list, overlay: str,
+                   failures: list) -> None:
+    """``[pp-analyze]``: the launcher's static check of the [pp-train] plan
+    before its first step (it raises on an error-level finding);
+    ``[pp-obs]``: its --obs post-pass after the last step — every F, B,
+    send and gradAR node of the plan's graph replayed on the card under its
+    uid (none skipped), the divergence report and the overlay."""
+    phase("pp-analyze", lines=[ln for ln in logs
+                               if ln.startswith("[analyze]")])
+    report, counts = obs["report"], obs["counts"]
+    summary = obs_summary(report)
+    m = summary["metrics"]
+    try:
+        sides = chrome_trace_ok(overlay)
+    except (OSError, ValueError, KeyError) as e:
+        sides = None
+        failures.append(f"pp-obs: overlay {overlay} is not a Chrome trace: "
+                        f"{e}")
+    if counts is None or counts["skipped"] != 0 or counts["measured"] == 0:
+        failures.append(f"pp-obs: replay counts {counts}")
+    if m.get("obs_unmatched_real") != 0 or m.get("obs_unmatched_sim") != 0:
+        failures.append(f"pp-obs: unmatched spans or nodes {m}")
+    if not all(obs["launches"].values()):
+        failures.append(f"pp-obs: the replay launched {obs['launches']}")
+    phase("pp-obs", replay=counts, replay_launches=obs["launches"],
+          overlay_events=sides, **summary,
+          lines=[ln for ln in logs if ln.startswith("[obs] mean")])
 
 
 def profile_pp_step(dev, ctx: dict) -> None:
@@ -2741,19 +2889,327 @@ def ep_phases(dev, gen, platform, db, failures: list) -> list:
     return ep_kernel_table(dev, gen, platform, ectx["launches"], failures)
 
 
+# -- phases 27-31: the launchers' checks and telemetry -------------------------
+
+
+def shard_logits_check(dev, ctx: dict, failures: list) -> dict:
+    """The slot-sharded decode's logits against the unsharded decode's on
+    one fixed mid-run batch: a pool of random K/V, each lane on its own
+    blocks at the mid-run lengths, random tokens; and each of the two
+    against the unsharded decode in fp32 compute on the same weights,
+    pool and tokens (printed, not gated: what bf16 rounding alone moves).
+    The limit is ``SHARD["tol"]`` of the logits' scale; the argmax must
+    agree on every lane whose top-2 margin exceeds the measured error."""
+    from repro_torch.models.build import compute_params, to_device
+    from repro_torch.serve import paged
+
+    cfg, scfg, params, mesh = (ctx["cfg"], ctx["scfg"], ctx["params"],
+                               ctx["mesh"])
+    g = torch.Generator(device=dev).manual_seed(SHARD["seed"])
+    s, mb = scfg.slots, scfg.max_blocks_per_slot
+    lens = torch.tensor(mid_run_lengths(ctx), dtype=torch.int32, device=dev)
+    tables = (torch.arange(s * mb, dtype=torch.int32, device=dev).view(s, mb)
+              + 1)
+    toks = torch.randint(0, cfg.vocab_size, (s, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    pool = paged.init_pool(cfg, scfg, dev)
+    for t in pool.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+    with torch.inference_mode():
+        plain, _ = paged.decode_batch(params, pool, toks, lens, tables, cfg,
+                                      scfg)
+        sharded, _ = paged.decode_slot_sharded(
+            paged.replicas(params, pool, mesh), toks, lens, tables, cfg,
+            scfg, mesh)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        pool32 = {k: v.float() for k, v in pool.items()}
+        fp32, _ = paged.decode_batch(
+            compute_params(to_device(ctx["master_params"], dev), cfg32),
+            pool32, toks, lens, tables, cfg32, scfg)
+        del pool32
+    torch.cuda.synchronize()
+    err, scale = max_err(sharded, plain), float(plain.abs().max())
+    to_fp32 = {"unsharded": max_err(plain, fp32),
+               "sharded": max_err(sharded, fp32)}
+    top2 = plain[:, -1].float().topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    agree = (torch.argmax(sharded[:, -1], -1)
+             == torch.argmax(plain[:, -1], -1)).tolist()
+    decided = [i for i, m in enumerate(margin) if m > err]
+    if not (torch.isfinite(sharded).all() and sharded.shape == plain.shape
+            and err <= SHARD["tol"] * max(1.0, scale)):
+        failures.append(f"serve-shard: sharded decode logits differ from the "
+                        f"unsharded by {err:.3g} (scale {scale:.3g}, limit "
+                        f"{SHARD['tol']} of it)")
+    if not all(agree[i] for i in decided):
+        failures.append(f"serve-shard: argmax differs on a lane whose top-2 "
+                        f"margin exceeds the error: {margin}, {agree}")
+    return {"max_abs_err": err, "logit_scale": scale,
+            "max_abs_err_to_fp32": to_fp32,
+            "tol": SHARD["tol"], "top2_margin": margin,
+            "argmax_agree": agree, "lanes_decided": decided,
+            "lengths": lens.tolist()}
+
+
+def serve_shard_phase(dev, failures: list) -> dict:
+    """``[serve-shard]``: llama3.2-1b at full width served with its decode
+    slot-sharded over ``SHARD["ranks"]`` logical ranks of the card (2 of the
+    8 slots a rank): ``calibrate_serve(mesh=)`` into a ProfileDB at the
+    trace's mean decode context (two passes, as [serve]), the engine over
+    the serve trace (launches asserted: every rank's decode is a forward),
+    the replay twin (compositions equal) and the priced twin; the sharded
+    decode's logits against the unsharded decode's (``shard_logits_check``).
+    The decode step's busy and wall time come later
+    (``shard_decode_profile``)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.database import ProfileDB
+    from repro_torch.core.estimator import OpTimeEstimator
+    from repro_torch.core.hardware import platform_for_device
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve.cost import calibrate_serve
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.policy import ServeConfig
+    from repro_torch.serve.report import (
+        latency_report, records_from_requests, serve_parity_report,
+    )
+    from repro_torch.serve.sim import replay_schedule, simulate_serve
+    from repro_torch.serve.trace import prompt_tokens
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    platform = platform_for_device(torch.cuda.get_device_name(dev))
+    scfg = ServeConfig(**SERVE)
+    mesh = make_mesh((SHARD["ranks"],), ("serve",), dev)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    trace = serve_trace()
+    context = trace_context(trace, scfg)
+    # two calibration passes, as [serve]: the first also warms the host up
+    # (the sharded steps are host-bound); the twins price from the second
+    dbs = []
+    t0 = time.perf_counter()
+    for _ in range(CAL_PASSES):
+        dbs.append(ProfileDB())
+        n_entries = calibrate_serve(dbs[-1], model, params, scfg,
+                                    platform.name, repeats=CAL_REPEATS,
+                                    device=dev, context=context, mesh=mesh)
+    t_cal = time.perf_counter() - t0
+    db = dbs[-1]
+
+    engine = ServeEngine(model, params, device=dev, mesh=mesh, **SERVE)
+    engine.warmup()
+    for t in trace:
+        engine.submit(Request(rid=t.rid,
+                              prompt=prompt_tokens(t, cfg.vocab_size),
+                              max_new_tokens=t.max_new_tokens,
+                              arrival_s=t.arrival_s))
+    counters = {k: c for k, c in kernel_counters().items()
+                if k != "ssd_scan"}
+    # the main path: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    finished = engine.run_until_done()
+    t_run = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    n_prefill = sum(1 for st in engine.step_log if st[2] is not None)
+    n_decode = sum(1 for st in engine.step_log if st[3])
+    # a prefill chunk is one forward (one replica: every rank on the card);
+    # a decode step one forward a rank
+    forwards = n_prefill + SHARD["ranks"] * n_decode
+    per_fwd = {"rmsnorm": 2 * cfg.num_layers + 1,
+               "flash_attention": cfg.num_layers}
+    for name, per in per_fwd.items():
+        if launches[name] != per * forwards or launches[name] == 0:
+            failures.append(f"serve-shard: {name} {launches[name]} launches, "
+                            f"expected {per} x {forwards} forward calls")
+    for r in finished:
+        want = scfg.effective_max_tokens(len(r.prompt), r.max_new_tokens)
+        if len(r.output) != want or not all(0 <= t < cfg.vocab_size
+                                            for t in r.output):
+            failures.append(f"serve-shard: request {r.rid} has "
+                            f"{len(r.output)} tokens (expected {want})")
+    if len(finished) != len(trace):
+        failures.append(f"serve-shard: {len(finished)}/{len(trace)} "
+                        "requests finished")
+    records = records_from_requests(finished)
+    eng_lat = latency_report(records, max(t for r in finished
+                                          for t in r.token_times_s))
+    sim = simulate_serve(trace, cfg, scfg,
+                         OpTimeEstimator(platform, db=db, use_learned=False),
+                         name=f"serve-{cfg.name}")
+    twin = replay_schedule(trace, scfg, engine.step_durations)
+    report = serve_parity_report(engine.step_log, twin.step_log,
+                                 engine_latency=eng_lat,
+                                 sim_latency=sim.latency)
+    if not report["composition_ok"]:
+        failures.append(f"serve-shard: step compositions differ: "
+                        f"{report['composition_mismatches'][:2]}")
+
+    ctx = {"cfg": cfg, "scfg": scfg, "params": engine.params, "mesh": mesh,
+           "trace": trace, "platform": platform, "db": db,
+           "launches": launches, "forward_calls": forwards,
+           "master_params": params}
+    check = shard_logits_check(dev, ctx, failures)
+    del ctx["master_params"], params
+    decode_only = [d for st, d in zip(engine.step_log, engine.step_durations)
+                   if st[2] is None and st[3]]
+    phase("serve-shard", arch=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, serve=SERVE, ranks=SHARD["ranks"],
+          lanes_per_rank=scfg.slots // SHARD["ranks"], trace=TRACE,
+          requests=len(finished), steps=len(engine.step_log),
+          forward_calls={"prefill": n_prefill, "decode_steps": n_decode,
+                         "decode_rank_calls": SHARD["ranks"] * n_decode},
+          launches=launches, db_entries=n_entries,
+          calibration_context=context,
+          db_ms=[{f"{fam}@{e.args.get('tokens', e.args.get('slots'))}":
+                  1e3 * e.mean_s
+                  for fam in ("serve_prefill", "serve_decode")
+                  for e in d.entries(platform.name, fam)} for d in dbs],
+          engine_decode_only_ms_p50=1e3 * sorted(decode_only)[
+              len(decode_only) // 2] if decode_only else None,
+          composition_ok=report["composition_ok"],
+          sim_vs_engine_rel_err=report["latency_rel_err"],
+          logits=check,
+          seconds={"calibrate": t_cal, "engine": t_run,
+                   "phase": time.perf_counter() - t_phase})
+    return ctx
+
+
+def shard_decode_profile(dev, ctx: dict) -> None:
+    """``[serve-shard-profile]``: the decode step at the mid-run lengths,
+    unsharded and slot-sharded: host wall ms, and the card's busy ms and
+    launches a step from torch.profiler (``busy_and_wall``)."""
+    steps = {}
+    for name, m in (("unsharded", None), ("sharded", ctx["mesh"])):
+        wall, wall_prof, busy, kernels = busy_and_wall(
+            decode_step(dev, ctx, mid_run_lengths(ctx), m), SHARD["steps"])
+        steps[name] = {"wall_ms": wall, "wall_ms_profiled": wall_prof,
+                       "device_busy_ms": busy if busy > 0 else
+                       "not measured",
+                       "idle_share": 1.0 - busy / wall_prof,
+                       "launches_per_step": sum(e.count for e in kernels)
+                       / SHARD["steps"]}
+    phase("serve-shard-profile", step="decode", ranks=SHARD["ranks"],
+          lengths=mid_run_lengths(ctx), steps_per_run=SHARD["steps"],
+          **steps)
+
+
+def serve_launcher(argv: list) -> tuple:
+    """``launch.serve.main(argv)`` with its output captured: (exit code,
+    the lines it printed)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launcher
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = launcher.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def serve_obs_phases(dev, ctx: dict, failures: list) -> None:
+    """``[serve-obs]``: the serve launcher on the [serve-shard] trace and
+    DB, slot-sharded (``--shard --ranks 4``), with ``--obs --trace-out``
+    and ``--parity``: the twin re-priced on the engine's measured steps, the
+    divergence report (no unmatched span or node), the overlay (parsed as a
+    Chrome trace) and the parity verdict (compositions equal; latency not
+    gated, as [serve]); ``[serve-analyze]``: the launcher's ``--analyze``
+    on the same trace and DB (no error-level finding)."""
+    from repro_torch.serve.trace import save_trace
+
+    scfg = ctx["scfg"]
+    tmp = tempfile.mkdtemp(prefix="serve-obs-")
+    trace_file = os.path.join(tmp, "trace.json")
+    db_file = os.path.join(tmp, "db.json")
+    overlay = os.path.join(tmp, "serve_overlay.json")
+    parity = os.path.join(tmp, "parity.json")
+    analyze = os.path.join(tmp, "analyze.json")
+    save_trace(trace_file, ctx["trace"])
+    ctx["db"].save(db_file)
+    shape = ["--arch", ARCH, "--slots", str(scfg.slots), "--max-len",
+             str(scfg.max_len), "--block-size", str(scfg.block_size),
+             "--chunk", str(scfg.chunk), "--trace-file", trace_file,
+             "--db", db_file]
+
+    counters = {k: c for k, c in kernel_counters().items()
+                if k != "ssd_scan"}
+    # the main path: counts from zero, read right after
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    rc, lines = serve_launcher(shape + [
+        "--shard", "--ranks", str(SHARD["ranks"]), "--obs", "--trace-out",
+        overlay, "--parity", "--tol-rel", "1e9", "--report", parity])
+    seconds = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    if rc != 0 or not all(launches.values()):
+        failures.append(f"serve-obs: launcher exit {rc}, launches "
+                        f"{launches}")
+    with open(os.path.splitext(overlay)[0] + "_report.json") as f:
+        rep = json.load(f)
+    with open(parity) as f:
+        par = json.load(f)
+    m = {k: v for k, v in rep["metrics"].items() if k.startswith("obs_")}
+    if m.get("obs_unmatched_real") != 0 or m.get("obs_unmatched_sim") != 0:
+        failures.append(f"serve-obs: unmatched spans or nodes {m}")
+    if not par["composition_ok"]:
+        failures.append("serve-obs: the sharded engine's compositions "
+                        "differ from the replay twin's")
+    try:
+        sides = chrome_trace_ok(overlay)
+    except (OSError, ValueError, KeyError) as e:
+        sides = None
+        failures.append(f"serve-obs: overlay is not a Chrome trace: {e}")
+    classes = rep["extras"]["obs_diff"]["classes"]
+    phase("serve-obs", metrics=m,
+          codes=sorted(f["code"] for f in rep["findings"]),
+          classes=classes, overlay_events=sides, launches=launches,
+          composition_ok=par["composition_ok"],
+          sim_vs_engine_rel_err=par["latency_rel_err"],
+          run_spec=rep["extras"].get("run_spec"), seconds=seconds,
+          lines=[ln for ln in lines if ln.startswith("[serve] ")])
+
+    t0 = time.perf_counter()
+    rc, lines = serve_launcher(shape + ["--analyze", "--analyze-report",
+                                        analyze])
+    with open(analyze) as f:
+        doc = json.load(f)
+    if rc != 0 or doc["counts"]["error"] != 0:
+        failures.append(f"serve-analyze: exit {rc}, counts {doc['counts']}")
+    phase("serve-analyze", counts=doc["counts"],
+          codes=sorted(f["code"] for f in doc["findings"]),
+          metrics=doc["metrics"], seconds=time.perf_counter() - t0)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def obs_phases(dev, gen, failures: list) -> list:
+    """This slice's serve phases, in order (serve-shard, serve-obs,
+    serve-analyze, serve-shard-profile); returns the kernel rows at the
+    sharded decode's shape (one rank's lanes), launches from
+    [serve-shard]."""
+    ctx = serve_shard_phase(dev, failures)
+    serve_obs_phases(dev, ctx, failures)
+    shard_decode_profile(dev, ctx)
+    rows = kernel_table(dev, gen, ctx, failures, "serve-shard-",
+                        lanes=ctx["scfg"].slots // SHARD["ranks"],
+                        phases=("decode",))
+    del ctx
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
     from repro_torch.configs.base import get_config
     from repro_torch.core.hardware import platform_for_device
     from repro_torch.serve.policy import ServeConfig
-    from repro_torch.serve.trace import poisson_trace
 
     platform = platform_for_device(torch.cuda.get_device_name(dev))
-    trace = poisson_trace(TRACE["n"], TRACE["rate"],
-                          prompt_lens=TRACE["prompt_lens"],
-                          max_new_tokens=TRACE["max_new_tokens"],
-                          seed=TRACE["seed"])
+    trace = serve_trace()
     ctx = {"scfg": ServeConfig(**SERVE), "platform": platform,
            "trace": trace, "launches": None, "forward_calls": None}
     table = kernel_table(dev, gen, dict(ctx, cfg=get_config(ARCH)), failures)
@@ -2771,13 +3227,15 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "pp", "ep"),
+    ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs"),
                     help="kernels: build, check and time the kernels alone "
-                         "(no serve or train run, no launch counts); pp or "
-                         "ep: build and check the kernels, then that "
+                         "(no serve or train run, no launch counts); pp, ep "
+                         "or obs: build and check the kernels, then that "
                          "slice's phases alone (remat-dots, pp-*, autotune; "
-                         "or ep-*; the layer profile into a fresh "
-                         "ProfileDB).  None prints the ok line")
+                         "ep-*; or serve-shard, serve-obs, serve-analyze "
+                         "and pp-train with pp-analyze and pp-obs; the "
+                         "layer profile into a fresh ProfileDB).  None "
+                         "prints the ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -2816,6 +3274,20 @@ def main() -> int:
     if args.only == "kernels":
         print(json.dumps({"kernels": kernels_only(dev, gen, failures,
                                                   ptxas)}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
+    if args.only == "obs":
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        table = obs_phases(dev, gen, failures)
+        pctx = pp_train_phase(dev, failures)
+        pctx["state"] = None
+        torch.cuda.empty_cache()
+        table += pp_kernel_table(dev, gen, platform, pctx["launches"],
+                                 failures)
+        print(json.dumps({"kernels": table}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
@@ -2900,8 +3372,12 @@ def main() -> int:
     # the "dots" remat, data and pipeline parallelism
     table += pp_phases(dev, gen, platform, dense_db, failures)
     torch.cuda.empty_cache()
-    # this slice: expert parallelism
+    # expert parallelism
     table += ep_phases(dev, gen, platform, dense_db, failures)
+    torch.cuda.empty_cache()
+    # this slice: the slot-sharded decode, the launchers' --obs and
+    # --analyze (the pp ones ran with [pp-train])
+    table += obs_phases(dev, gen, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -82,11 +82,16 @@ DEFAULT_MATMUL_GRID = [64, 128, 256, 512, 1024, 2048]
 DEFAULT_VECTOR_SIZES = [2**p for p in range(10, 25, 2)]
 
 
+def platform_of(device: torch.device) -> PlatformSpec:
+    """The platform a device runs as: the card's spec, or the CPU host's."""
+    if device.type == "cuda":
+        return platform_for_device(torch.cuda.get_device_name(device))
+    return CPU_HOST
+
+
 def platform_name(device: torch.device) -> str:
     """The ProfileDB platform key of a device."""
-    if device.type == "cuda":
-        return platform_for_device(torch.cuda.get_device_name(device)).name
-    return "cpu_host"
+    return platform_of(device).name
 
 
 class OfflineProfiler:

@@ -43,14 +43,6 @@ from typing import Callable, Optional
 from repro_torch.core.graph import DataflowGraph, OpNode
 
 
-def unsimulated_summary(graph: DataflowGraph, completed) -> str:
-    """Which nodes never ran in a stalled simulation."""
-    unreached = [n.name for n in graph.nodes if not completed[n.uid]]
-    head = ", ".join(unreached[:8])
-    more = f", ... ({len(unreached)} total)" if len(unreached) > 8 else ""
-    return f"unreached nodes: {head}{more}"
-
-
 @dataclass
 class SimEvent:
     node: int
@@ -180,8 +172,11 @@ class Simulator:
                     )
                     heapq.heappush(ready, (t, s))
         if done != n:
-            # name the stuck nodes (cycle extraction lives in the JAX
-            # package's analyzer, which the port has not taken over yet)
+            # name the stuck nodes and the cycle blocking them — extraction
+            # is the analyzer's job (lazy import keeps core free of a
+            # repro_torch.analysis dependency at module load)
+            from repro_torch.analysis.graph_lints import unsimulated_summary
+
             raise RuntimeError(
                 f"simulated {done}/{n} nodes — graph has a cycle or "
                 f"unreachable dependencies; "
@@ -359,6 +354,8 @@ class Simulator:
             fab_project(fabric)
 
         if done != n:
+            from repro_torch.analysis.graph_lints import unsimulated_summary
+
             raise RuntimeError(
                 f"simulated {done}/{n} nodes — graph has a cycle or "
                 f"unreachable dependencies; "

@@ -1,2 +1,3 @@
 """Command-line launchers of the port: serving, training and the
-train-step twin (``sim_accuracy``)."""
+train-step twin (``sim_accuracy``), and the run spec they share
+(``spec``)."""

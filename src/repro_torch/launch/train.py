@@ -38,20 +38,43 @@ Each step is timed twice: on the host, up to the loss's host sync (as the
 JAX launcher does, ``run_timed_step``), and on the card, between two CUDA
 events around the step.
 
+``--analyze`` verifies the plan statically before the first step
+(``repro_torch.analysis``: schedule, graph, timeline; it raises
+``PlanVerificationError`` on an error-level finding).  ``--obs`` records
+the steps as spans and, after training with ``--pp``, prices the plan on the
+launcher's platform, replays its ops on the mesh under the graph's node
+uids (``repro_torch.obs.replay``) and prints the divergence report;
+``--trace-out`` writes the sim-vs-real overlay there and the report beside
+it:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --smoke --device cpu --steps 2 --seq 32 --batch 8 --ranks 4 \\
+        --pp 2 --microbatches 2 --analyze --obs --trace-out /tmp/t.json
+
+Plans are priced on the launcher's platform: the card's spec, or
+``CPU_HOST`` with ``--device cpu``.  The shared flags are declared in
+``launch/spec.py``, as the reference's.
+
 Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--ckpt-dir`` (checkpointing) and ``--obs`` (telemetry replay).  Every
-family trains unpipelined; ``--pp`` takes the ``dense`` and ``moe``
-families, as the reference's.
+``--ckpt-dir`` (checkpointing, A12) and ``--netprof-db`` (the
+calibrated-interconnect estimator, A14).  ``--overlap-comm`` is accepted
+and changes nothing: the executor always elides the exchanges no rank
+receives (``train.step.make_pipeline_train_step``).  Every family trains
+unpipelined; ``--pp`` takes the ``dense`` and ``moe`` families, as the
+reference's.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ShapeConfig, get_config, smoke_variant
+from repro_torch.core.estimator import OpTimeEstimator
+from repro_torch.core.profiler import platform_of
 from repro_torch.data import make_train_iterator
 from repro_torch.device import resolve_device
 from repro_torch.dist import mesh as M
@@ -67,8 +90,8 @@ from repro_torch.train.step import (
 )
 
 _NOT_PORTED = {
-    "ckpt_dir": "checkpointing (ROADMAP.md, 'Also later: ckpt/')",
-    "obs": "the telemetry replay (ROADMAP.md, '--obs')",
+    "ckpt_dir": "checkpointing (ROADMAP.md, A12)",
+    "netprof_db": "the calibrated-interconnect estimator (ROADMAP.md, A14)",
 }
 
 
@@ -212,6 +235,99 @@ def pipeline_parity_report(plan, *, micro_batch: int, seq: int, dp: int = 1,
     return out
 
 
+def plan_analysis_report(cfg, strategy, *, micro_batch: int, seq: int,
+                         estimator=None, run_spec=None, log_fn=print):
+    """Statically verify the launch plan before a single step executes.
+
+    Runs the full ``repro_torch.analysis`` pass over the model-derived plan
+    — schedule table legality and ppermute pairing, graph structure and
+    accounting completeness, and the DES timeline audit — and raises
+    :class:`repro_torch.analysis.PlanVerificationError` on any error-level
+    finding: a plan that would deadlock the executor or price garbage never
+    reaches the mesh.
+    """
+    from repro_torch.analysis import analyze_training_plan
+    from repro_torch.launch import spec as runspec
+
+    report = analyze_training_plan(
+        cfg, strategy, micro_batch=micro_batch, seq=seq,
+        estimator=estimator, use_model_graph=True,
+    )
+    runspec.attach(report, run_spec)
+    for line in report.summary_lines():
+        log_fn(f"[analyze] {line}")
+    report.raise_on_errors()
+    return report
+
+
+def _obs_report(rec, cfg, plan, mesh, params, *, batch: int, seq: int,
+                dp: int, grad_accum: int, compression: str,
+                overlap_buckets: int, estimator, trace_out: str,
+                run_spec=None, log_fn=print):
+    """The --obs post-pass: price the plan, replay its ops for real,
+    attribute the sim-vs-real gap, and export the overlay trace.
+
+    The pipelined step runs every rank's ops in one host loop, so the real
+    side of each op comes from :func:`repro_torch.obs.replay`'s
+    instrumented standalone re-execution on the live mesh — the offline
+    profiling the estimator is built from, turned into spans under the
+    simulator's own node uids.  Returns ``(report, replay counts)``; both
+    are None without a pipeline plan.
+    """
+    from repro_torch.launch import spec as runspec
+    from repro_torch.obs import (
+        divergence_report,
+        overlay_chrome_trace,
+        replay_pipeline_ops,
+    )
+
+    sim_res = graph = report = counts = None
+    measured = None
+    step_spans = [s for s in rec.spans if s.labels.get("role") == "step"]
+    if step_spans:
+        measured = sum(s.duration for s in step_spans) / len(step_spans)
+    if plan is not None:
+        from repro_torch.core.simulator import simulate
+        from repro_torch.core.strategy import model_pipeline_graph
+
+        micro_bs = max(batch // (dp * grad_accum * plan.microbatches), 1)
+        strat = plan.strategy(dp=dp, compression=compression)
+        if overlap_buckets:
+            strat = dataclasses.replace(strat,
+                                        overlap_buckets=overlap_buckets)
+        graph = model_pipeline_graph(cfg, strat, micro_bs, seq)
+        sim_res = simulate(graph, estimator.duration, record_events=True)
+        counts = replay_pipeline_ops(
+            rec, graph, cfg=cfg, plan=plan, mesh=mesh, params=params,
+            micro_batch=micro_bs, seq=seq, log_fn=log_fn,
+        )
+        report = divergence_report(rec, sim_res, graph, name="train-obs")
+        if measured is not None:
+            report.metrics["obs_step_mean_s"] = float(measured)
+            log_fn(
+                f"[obs] mean real step {measured * 1e3:.1f}ms vs simulated "
+                f"makespan {sim_res.makespan * 1e3:.2f}ms (the step also "
+                f"carries executor dispatch overhead the per-op "
+                f"attribution below excludes)"
+            )
+        runspec.attach(report, run_spec)
+        for line in report.summary_lines():
+            log_fn(f"[obs] {line}")
+    else:
+        log_fn(
+            "[obs] no pipeline plan (--pp 1): recorded "
+            f"{len(rec.spans)} spans; overlay will carry real tracks only"
+        )
+    if trace_out:
+        overlay_chrome_trace(sim_res, rec, trace_out, graph=graph)
+        log_fn(f"[obs] overlay trace written to {trace_out}")
+        if report is not None:
+            rpath = os.path.splitext(trace_out)[0] + "_report.json"
+            report.to_json(rpath)
+            log_fn(f"[obs] divergence report written to {rpath}")
+    return report, counts
+
+
 def train(
     cfg,
     *,
@@ -229,20 +345,27 @@ def train(
     overlap_buckets: int = 0,
     ranks: Optional[int] = None,
     ckpt_dir: Optional[str] = None,
+    netprof_db: Optional[str] = None,
+    analyze: bool = False,
     obs: bool = False,
+    trace_out: str = "",
+    run_spec=None,
     log_every: int = 10,
     seed: int = 0,
     device="cuda",
     on_step: Optional[Callable[[int, dict], None]] = None,
+    on_obs: Optional[Callable] = None,
     log_fn=print,
 ):
     """Train ``steps`` steps; returns ``(state, losses)``.
 
     ``on_step(i, record)`` is called after each step with its loss, the
     model's ``ce`` and ``aux``, grad norm, learning rate, host milliseconds
-    and (on the card) device milliseconds.
+    and (on the card) device milliseconds.  With ``obs``, ``on_obs(report,
+    counts)`` gets the divergence report and the replay's measured and
+    skipped node counts (None, None without ``--pp``).
     """
-    asked = {"ckpt_dir": bool(ckpt_dir), "obs": obs}
+    asked = {"ckpt_dir": bool(ckpt_dir), "netprof_db": bool(netprof_db)}
     for key, on in asked.items():
         if on:
             raise NotImplementedError(f"{key}: {_NOT_PORTED[key]} is not "
@@ -262,6 +385,27 @@ def train(
     else:
         mesh = build_mesh(ranks, device=dev)
     dp = mesh.sizes["data"]
+    # plans are priced on the launcher's own platform: the card's, or the
+    # CPU host's
+    estimator = OpTimeEstimator(platform_of(dev))
+    if analyze:
+        from repro_torch.core.strategy import Strategy
+
+        mb_count = plan.microbatches if plan is not None else 1
+        plan_analysis_report(
+            cfg,
+            Strategy(
+                dp=dp,
+                pp=plan.pp if plan is not None else 1,
+                microbatches=mb_count,
+                schedule=pp_schedule if pipeline_on else "1f1b",
+                vstages=vstages if pipeline_on else 1,
+                compression=compression,
+                overlap_buckets=overlap_buckets,
+            ),
+            micro_batch=max(batch // (dp * grad_accum * mb_count), 1),
+            seq=seq, estimator=estimator, run_spec=run_spec, log_fn=log_fn,
+        )
     ctx = make_ctx(mesh, overrides=cfg.sharding_overrides)
     model = build_model(cfg)
     opt = make_optimizer(cfg.optimizer)
@@ -286,7 +430,9 @@ def train(
         comm_report(cfg, mesh, state.params, batch=batch, seq=seq,
                     compression=compression, log_fn=log_fn)
         data = make_train_iterator(cfg, shape, seed=seed)
-        rec = Recorder(enabled=False)
+        # disabled, the recorder's interval is exactly the two clock reads
+        # a step's timing needs; with --obs it keeps the steps as spans
+        rec = Recorder(enabled=obs)
         losses = []
         M.reset_traffic()
         reset_ep_calls()
@@ -340,46 +486,30 @@ def train(
                f"recompute): {dict(sorted(EP_CALLS.items()))}")
     log_fn(f"[done] {steps} steps in {wall:.1f}s; "
            f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if obs:
+        report, counts = _obs_report(
+            rec, cfg, plan, mesh, state.params, batch=batch, seq=seq, dp=dp,
+            grad_accum=grad_accum, compression=compression,
+            overlap_buckets=overlap_buckets, estimator=estimator,
+            trace_out=trace_out, run_spec=run_spec, log_fn=log_fn,
+        )
+        if on_obs is not None:
+            on_obs(report, counts)
     return state, losses
 
 
 def main(argv=None) -> None:
+    from repro_torch.launch import spec as runspec
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="mamba2-2.7b",
-                    help="an architecture of configs/ (every family "
-                         "trains)")
-    ap.add_argument("--smoke", action="store_true",
-                    help="reduced config of the same family (CPU-sized)")
-    ap.add_argument("--seed", type=int, default=0)
+    # the shared launch surface lives in launch/spec.py (one declaration,
+    # every driver); only the launcher's own knobs are declared here
+    runspec.add_args(ap, "model", "train", "obs")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--grad-accum", dest="grad_accum", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ranks", type=int, default=0,
                     help="logical ranks of the mesh (default: one per "
                          "visible CUDA device, or 1); data = ranks / pp")
-    ap.add_argument("--compression", choices=["none", "int8"],
-                    default="none",
-                    help="compressed data-parallel gradients: int8 payloads "
-                         "with error-feedback residuals in "
-                         "TrainState.comp_state (repro_torch.dist.compress)")
-    ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages: simulate the schedule AND run the "
-                         "real model through the scheduled pipeline "
-                         "executor on a (data, stage) mesh")
-    ap.add_argument("--pp-schedule", dest="pp_schedule",
-                    choices=["gpipe", "1f1b", "interleaved_1f1b"],
-                    default="1f1b")
-    ap.add_argument("--vstages", type=int, default=1,
-                    help="virtual stages per rank (interleaved_1f1b)")
-    ap.add_argument("--microbatches", type=int, default=0,
-                    help="pipeline microbatches (default: --pp)")
-    ap.add_argument("--overlap-buckets", dest="overlap_buckets", type=int,
-                    default=0,
-                    help=">= 2: reduce the gradients in this many "
-                         "reverse-order buckets (bit-exact)")
     ap.add_argument("--moe-impl", dest="moe_impl",
                     choices=["einsum", "ep_a2a"], default=None,
                     help="MoE execution strategy (ep_a2a = explicit "
@@ -392,11 +522,11 @@ def main(argv=None) -> None:
                          "num_heads)")
     # refused until ported (see _NOT_PORTED)
     ap.add_argument("--ckpt-dir", dest="ckpt_dir", default=None)
-    ap.add_argument("--obs", action="store_true")
     args = ap.parse_args(argv)
+    spec = runspec.from_args(args)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
+    cfg = get_config(spec.arch)
+    if spec.smoke:
         cfg = smoke_variant(cfg)
     if args.moe_impl and cfg.moe is not None:
         cfg = dataclasses.replace(
@@ -406,20 +536,21 @@ def main(argv=None) -> None:
                                   head_dim=args.d_model // cfg.num_heads)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    pipeline_on = args.pp > 1 or args.vstages > 1
+    pipeline_on = spec.pp > 1 or spec.vstages > 1
     if pipeline_on:
         pipeline_plan_report(
-            cfg, pp=args.pp, schedule=args.pp_schedule,
-            vstages=args.vstages,
-            microbatches=args.microbatches or max(args.pp, 1),
-            batch=args.batch, seq=args.seq)
-    train(cfg, steps=args.steps, seq=args.seq, batch=args.batch, lr=args.lr,
-          grad_accum=args.grad_accum, compression=args.compression,
-          pp=args.pp if pipeline_on else 0, pp_schedule=args.pp_schedule,
-          vstages=args.vstages, microbatches=args.microbatches,
-          overlap_buckets=args.overlap_buckets, ranks=args.ranks or None,
-          ckpt_dir=args.ckpt_dir, obs=args.obs, seed=args.seed,
-          device=args.device)
+            cfg, pp=spec.pp, schedule=spec.pp_schedule,
+            vstages=spec.vstages,
+            microbatches=spec.microbatches or max(spec.pp, 1),
+            batch=spec.batch, seq=spec.seq)
+    train(cfg, steps=spec.steps, seq=spec.seq, batch=spec.batch, lr=args.lr,
+          grad_accum=spec.grad_accum, compression=spec.compression,
+          pp=spec.pp if pipeline_on else 0, pp_schedule=spec.pp_schedule,
+          vstages=spec.vstages, microbatches=spec.microbatches,
+          overlap_buckets=spec.overlap_buckets, ranks=args.ranks or None,
+          ckpt_dir=args.ckpt_dir, netprof_db=spec.netprof_db or None,
+          analyze=spec.analyze, obs=spec.obs, trace_out=spec.trace_out,
+          run_spec=spec, seed=spec.seed, device=args.device)
 
 
 if __name__ == "__main__":

@@ -261,6 +261,7 @@ def calibrate_serve(
     repeats: int = 3,
     device="cuda",
     context: int = 0,
+    mesh=None,
 ) -> int:
     """Measure the real serving-step primitives into the DB.
 
@@ -278,6 +279,12 @@ def calibrate_serve(
     keys past each row's causal edge, so on the card a step costs more at a
     longer context; a caller that knows its traffic passes a typical one.
     The DB key does not record it.
+
+    Pass the engine's ``mesh`` to profile the *deployed* placement: params
+    and pool replicated, prefill on every replica, the decode batch
+    slot-sharded (``serve.paged.decode_slot_sharded``) — a sharded engine
+    pays other step costs (on one card, its ranks' decodes run one after
+    another), and the DB must record what the deployment will run.
     """
     import torch
 
@@ -296,6 +303,10 @@ def calibrate_serve(
         )
     params = compute_params(to_device(params, dev), cfg)
     pool = paged.init_pool(cfg, scfg, dev)
+    reps = None
+    if mesh is not None:
+        paged.check_slot_sharding(scfg.slots, mesh)
+        reps = paged.replicas(params, pool, mesh)
     mb = scfg.max_blocks_per_slot
     nb = scfg.resolved_num_blocks()
     # calibration tables: lane s owns blocks [1 + s*mb, (s+1)*mb] (wrapped
@@ -312,9 +323,14 @@ def calibrate_serve(
             start = max(0, min(context, scfg.view_len - b))
 
             def step_prefill(toks=toks, b=b, start=start):
-                logits, _ = paged.prefill_chunk(
-                    params, pool, toks, start, b, row, 0, cfg, scfg
-                )
+                if reps is not None:
+                    logits, _ = paged.prefill_replicated(
+                        reps, toks, start, b, row, 0, cfg, scfg
+                    )
+                else:
+                    logits, _ = paged.prefill_chunk(
+                        params, pool, toks, start, b, row, 0, cfg, scfg
+                    )
                 return int(torch.argmax(logits[0, -1]))
 
             mean, std = time_callable(step_prefill, repeats=repeats,
@@ -336,9 +352,14 @@ def calibrate_serve(
                           dtype=torch.int32, device=dev)
 
         def step_decode():
-            logits, _ = paged.decode_batch(
-                params, pool, toks, lens, tables, cfg, scfg
-            )
+            if reps is not None:
+                logits, _ = paged.decode_slot_sharded(
+                    reps, toks, lens, tables, cfg, scfg, mesh
+                )
+            else:
+                logits, _ = paged.decode_batch(
+                    params, pool, toks, lens, tables, cfg, scfg
+                )
             return torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
 
         mean, std = time_callable(step_decode, repeats=repeats, device=dev)

@@ -24,8 +24,15 @@ work.  :meth:`ServeEngine.warmup` runs every function the engine can
 dispatch once, so kernel builds and cuBLAS heuristics stay out of measured
 steps.  Serving runs under ``torch.inference_mode()``.
 
-Not ported yet: the slot-sharded mesh (distributed slice) and
-``splice_cache``.
+``mesh`` (``repro_torch.dist.mesh.make_mesh((n,), ("serve",), device)``)
+slot-shards the decode batch as the JAX engine does: params and pool
+replicated, each of the ``n`` ranks decoding its contiguous ``slots // n``
+lanes (``serve.paged.decode_slot_sharded``; the same tensors for ranks that
+share a card, a copy for a rank on another), prefill replicated.  The step
+log, the scheduler and the twins do not change.
+
+Not ported: ``splice_cache`` (the JAX package's whole-cache helper, which
+its engine does not call).
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ class ServeEngine:
         chunk: int = 32,
         num_blocks: int = 0,
         device="cuda",
+        mesh=None,
         clock: Callable[[], float] = time.perf_counter,
         recorder: Optional[Recorder] = None,
     ):
@@ -83,6 +91,9 @@ class ServeEngine:
         self.slots = slots
         self.max_len = max_len
         self.eos_id = eos_id
+        self.mesh = mesh
+        if mesh is not None:
+            paged.check_slot_sharding(slots, mesh)
         self.sched = ServeScheduler(self.serve_cfg)
         self.requests: dict[int, Request] = {}
         self.slot_req: list[Optional[Request]] = [None] * slots
@@ -97,6 +108,10 @@ class ServeEngine:
         )
         self.params = compute_params(to_device(params, self.device), self.cfg)
         self.pool = paged.init_pool(self.cfg, self.serve_cfg, self.device)
+        self._replicas = (
+            paged.replicas(self.params, self.pool, mesh)
+            if mesh is not None else None
+        )
         # duration source only — scheduling time is sched.clock (see module
         # docstring); injectable for deterministic tests.  Without a
         # recorder, a disabled one over the same clock measures each step
@@ -109,6 +124,12 @@ class ServeEngine:
         return torch.as_tensor(a, device=self.device)
 
     def _prefill(self, toks, start: int, width: int, row):
+        if self._replicas is not None:
+            return paged.prefill_replicated(
+                self._replicas, self._tensor(toks), start,
+                width, self._tensor(row), self.sched.scratch_block,
+                self.cfg, self.serve_cfg,
+            )
         return paged.prefill_chunk(
             self.params, self.pool, self._tensor(toks), start, width,
             self._tensor(row), self.sched.scratch_block, self.cfg,
@@ -116,6 +137,12 @@ class ServeEngine:
         )
 
     def _decode(self, toks, lengths, tables):
+        if self._replicas is not None:
+            return paged.decode_slot_sharded(
+                self._replicas, self._tensor(toks),
+                self._tensor(lengths), self._tensor(tables), self.cfg,
+                self.serve_cfg, self.mesh,
+            )
         return paged.decode_batch(
             self.params, self.pool, self._tensor(toks),
             self._tensor(lengths), self._tensor(tables), self.cfg,
@@ -126,8 +153,9 @@ class ServeEngine:
 
     @torch.inference_mode()
     def warmup(self) -> None:
-        """Run every function this engine can dispatch (decode + all pow2
-        prefill buckets) once on throwaway inputs, with their readbacks, so
+        """Run every function this engine can dispatch (decode, slot-sharded
+        where the engine has a mesh, + all pow2 prefill buckets) once on
+        throwaway inputs, with their readbacks, so
         first-call costs (kernel builds, library heuristics) never land
         inside a measured step.  The dummy tables point at the scratch
         block, whose contents are never read unmasked, so no request state

@@ -41,6 +41,19 @@ prefill chunk's bucket, padding included, or one token a slot), so a chunked
 prefill may drop a choice that a whole-prompt prefill keeps, and the
 reverse.
 
+**Slot sharding** (the JAX engine's ``mesh``: params and pool replicated,
+the decode batch's tokens, lengths and block tables sharded over the mesh's
+first axis).  :func:`replicas` holds the params and the pool once a device
+of the mesh (the same tensors for every rank on the caller's device, a copy
+for a rank on another); :func:`prefill_replicated` runs a chunk on every
+replica, as JAX's replicated prefill runs on every device; and
+:func:`decode_slot_sharded` runs each rank's contiguous ``slots // n``
+lanes on its own device through :func:`decode_batch`, its shards of the
+inputs being views (``models.sharding.shards``).  A pool block belongs to
+one slot, so the ranks' writes never overlap, and every position a rank
+reads was written by a prefill (on every replica) or by that rank's own
+decode.  The logits come back in slot order on the caller's device.
+
 The write-then-gather order is kept: the chunk's own K/V are in the view it
 attends over.  The gather stays in PyTorch (a kernel that reads through the
 block table is later work).  The pool always stores ``cfg.compute_dtype``.
@@ -51,8 +64,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import P, shards
 from repro_torch.models.transformer import _ffn, head_weight, layer
 from repro_torch.serve.policy import ServeConfig
+from repro_torch.tree import tree_map
 
 SUPPORTED_FAMILIES = ("dense", "moe")
 
@@ -180,3 +195,60 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
     )
     w, transpose = head_weight(params, cfg)
     return L.logits_head(w, h, transpose=transpose), pool
+
+
+# -- slot sharding ---------------------------------------------------------------
+
+
+def check_slot_sharding(slots: int, mesh) -> None:
+    """A slot-sharded decode splits the slots evenly over the mesh's first
+    axis (the JAX launcher's message)."""
+    n = mesh.shape[0]
+    if slots % n:
+        raise ValueError(
+            f"--shard needs slots ({slots}) divisible by device count ({n})"
+        )
+
+
+def replicas(params, pool, mesh) -> dict:
+    """``{device: (params, pool)}`` over the devices of ``mesh``: first the
+    given tensors on their own device (the caller's), then a copy on every
+    other device."""
+    home = pool["k"].device
+    out = {home: (params, pool)}
+    for d in mesh.devices:
+        if d not in out:
+            out[d] = (tree_map(lambda t: t.to(d), params),
+                      {k: v.to(d) for k, v in pool.items()})
+    return out
+
+
+def prefill_replicated(reps: dict, tokens, start: int, width: int,
+                       table_row, scratch_block: int, cfg: ArchConfig,
+                       scfg: ServeConfig):
+    """:func:`prefill_chunk` on every replica of :func:`replicas` (each pool
+    gets the chunk's K/V); returns the caller's replica's ``(logits,
+    pool)``."""
+    out = [prefill_chunk(params, pool, tokens.to(dev), start, width,
+                         table_row.to(dev), scratch_block, cfg, scfg)
+           for dev, (params, pool) in reps.items()]
+    return out[0]
+
+
+def decode_slot_sharded(reps: dict, tokens, lengths, tables,
+                        cfg: ArchConfig, scfg: ServeConfig, mesh):
+    """:func:`decode_batch` with the lanes split over the mesh's first
+    axis: rank ``r`` decodes lanes ``[r * S/n, (r+1) * S/n)`` on its device
+    from its replica of :func:`replicas`.  Returns (logits (S, 1, vocab) in
+    slot order on the caller's device, the caller's pool)."""
+    home = next(iter(reps))
+    ax = mesh.axis_names[0]
+    cut = P(ax)
+    parts = [shards(t, cut, mesh) for t in (tokens, lengths, tables)]
+    logits = []
+    for c in mesh.group(ax, (0,) * len(mesh.shape)):
+        params, pool = reps[mesh.device(c)]
+        lg, _ = decode_batch(params, pool, parts[0][c], parts[1][c],
+                             parts[2][c], cfg, scfg)
+        logits.append(lg.to(home))
+    return torch.cat(logits), reps[home][1]

@@ -646,3 +646,99 @@ def test_ep_recompute_on_the_autograd_thread_takes_ep(dev):
                                atol=1e-5)
     for a, b in zip(grads, grads_e):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_slot_sharded_decode_on_card_matches_unsharded(dev):
+    """The decode batch split over 4 logical ranks of the card (2 lanes
+    each) against the whole batch in one call, bf16, on one fixed batch:
+    logits within the repo's bf16 tolerance of their scale (the lanes' GEMMs
+    take other cuBLAS kernels at 2 rows than at 8)."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.build import compute_params, to_device
+    from repro_torch.serve import paged
+    from repro_torch.serve.policy import ServeConfig
+
+    cfg = dataclasses.replace(smoke_variant(get_config("llama3.2-1b")),
+                              num_layers=2, compute_dtype="bfloat16")
+    scfg = ServeConfig(slots=8, max_len=256, block_size=16, chunk=32)
+    params = compute_params(to_device(build_model(cfg).init(
+        torch.Generator().manual_seed(0)), dev), cfg)
+    g = torch.Generator(device=dev).manual_seed(1)
+    pool = paged.init_pool(cfg, scfg, dev)
+    for t in pool.values():
+        t.copy_(torch.randn(t.shape, generator=g, device=dev).to(t.dtype))
+    mb = scfg.max_blocks_per_slot
+    tables = torch.arange(8 * mb, dtype=torch.int32, device=dev).view(8, mb)
+    lens = torch.tensor([5, 40, 100, 255, 0, 17, 128, 200],
+                        dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (8, 1), generator=g, device=dev,
+                         dtype=torch.int32)
+    mesh = make_mesh((4,), ("serve",), dev)
+    with torch.inference_mode():
+        plain, _ = paged.decode_batch(params, pool, toks, lens, tables + 1,
+                                      cfg, scfg)
+        sharded, _ = paged.decode_slot_sharded(
+            paged.replicas(params, pool, mesh), toks, lens, tables + 1,
+            cfg, scfg, mesh)
+    assert sharded.shape == plain.shape and sharded.device == plain.device
+    scale = float(plain.abs().max())
+    torch.testing.assert_close(sharded.float(), plain.float(), rtol=0,
+                               atol=2e-2 * max(1.0, scale))
+
+
+def test_replay_span_covers_its_ops_device_time(dev, monkeypatch):
+    """Each F/B replay span is at least the CUDA-event time of the very
+    call it measures: the replay synchronises the card before reading the
+    clock at both ends.  At one layer of llama3.2-1b at full width over
+    2048 tokens the op's device time is several times its launch time, so
+    a span without the synchronisation would come out shorter."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.strategy import model_pipeline_graph
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.pipeline import make_plan
+    from repro_torch.obs import Recorder
+    from repro_torch.obs import replay as R
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), num_layers=2)
+    plan = make_plan(cfg, 2, 2)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    calls = []
+    real_fns = R._chunk_fns
+
+    def timed_fns(*a):
+        fns = real_fns(*a)
+
+        def timed(fn):
+            def run(*args):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*args)
+                ev[1].record()
+                calls.append(ev)
+                return out
+            return run
+
+        return tuple(timed(f) for f in fns)
+
+    monkeypatch.setattr(R, "_chunk_fns", timed_fns)
+    pairs = []
+
+    class Rec(Recorder):
+        def emit(self, name, device, t0, t1, **kw):
+            if kw.get("kind") in ("fwd", "bwd"):
+                calls[-1][1].synchronize()
+                pairs.append((t1 - t0,
+                              calls[-1][0].elapsed_time(calls[-1][1]) / 1e3))
+            return super().emit(name, device, t0, t1, **kw)
+
+    mesh = make_mesh((1, 2), ("data", "stage"), dev)
+    graph = model_pipeline_graph(cfg, plan.strategy(dp=1), 1, 2048)
+    counts = R.replay_pipeline_ops(Rec(), graph, cfg=cfg, plan=plan,
+                                   mesh=mesh, params=params, micro_batch=1,
+                                   seq=2048, log_fn=lambda s: None)
+    assert counts["skipped"] == 0 and len(pairs) == 8
+    for span, device_s in pairs:
+        assert span >= device_s > 0

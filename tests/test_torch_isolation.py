@@ -52,6 +52,36 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert leaked.strip() == "[]"
 
 
+_NEW_MODULES = {
+    "repro_torch.launch.spec", "repro_torch.analysis.analyzer",
+    "repro_torch.analysis.coverage", "repro_torch.analysis.graph_lints",
+    "repro_torch.analysis.serve_checks",
+    "repro_torch.analysis.timeline_checks",
+    "repro_torch.analysis.__main__", "repro_torch.obs.diff",
+    "repro_torch.obs.overlay", "repro_torch.obs.replay",
+}
+
+_WALK = """
+import json, pkgutil, sys
+sys.path.insert(0, {src!r})
+import repro_torch
+print(json.dumps([m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]))
+"""
+
+
+def test_the_walk_covers_the_analyzers_telemetry_and_spec():
+    """The import walk above reaches the analyzers, the telemetry and the
+    run spec: each of their modules is one it imports."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WALK.format(src=SRC)], capture_output=True,
+        text=True, timeout=300, env=_env(), cwd=REPO,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    walked = set(json.loads(out.stdout))
+    assert _NEW_MODULES <= walked, sorted(_NEW_MODULES - walked)
+
+
 def test_no_source_file_names_jax_or_repro():
     bad = []
     for root, _, files in os.walk(os.path.join(SRC, "repro_torch")):
