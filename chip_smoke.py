@@ -10,6 +10,10 @@
     python3 chip_smoke.py --only obs       # kernels' checks, then the
                                            # sharded decode, the launchers'
                                            # --obs / --analyze, pp-train
+    python3 chip_smoke.py --only ckpt      # kernels' checks, then
+                                           # checkpoint and resume
+    python3 chip_smoke.py --only netprof   # kernels' checks, then the
+                                           # collective sweep
 
 Phases, each printing one line of numbers:
 
@@ -197,7 +201,30 @@ Phases, each printing one line of numbers:
              plan replayed on the card under its uid, none skipped, the
              divergence report and the overlay; the replay's launches
              counted apart from the steps');
-32. a JSON line of every kernel at the serve and train shapes: launches on
+32. ckpt    — llama3.2-1b at full width and depth through
+             ``launch.train.train`` with a checkpoint directory (the
+             [dense-train] shape, AdamW): (A) 2 steps into a fresh
+             directory, (B) the same directory to step 4, restored from
+             step 2, (C) 4 steps with no directory; B's losses of steps 3-4
+             and its final parameters and moments against C's, bit for bit
+             (``CKPT``); the checkpoint's bytes (14,829,772,808), the
+             blocking snapshot, the background write, the restore and the
+             disk's free space, checked first (launches asserted as phase 9;
+             the directory removed after);
+33. ft      — that run's heartbeat file and the straggler policy's verdict
+             on each step;
+34. netprof — the collective sweep over 4 logical ranks of the card: all
+             five kinds in fp32, bf16 and int8, on the flat mesh and the
+             2 x 2 sub-axes, 4 KiB .. 256 MiB (``NETPROF``), and the
+             concurrent sweep; the entries by kind and group, the fitted
+             latency and wire rate; ``calibrate --verify`` on the saved DB;
+             the acceptance graph and phase 21's pp = 2 x dp = 2 plan priced
+             from it against the H100 SXM data sheet's NVLink ring, and the
+             train launcher's plan and parity reports with ``--netprof-db``,
+             every collective node priced from measurements.  The ranks
+             share the card: the measurements are device-local copies, not
+             NVLink times;
+35. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -367,7 +394,9 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                "pp-train": ((1, 2048, 2048, 32, 8, 64), torch.bfloat16,
                             ATTN_BF16_TOL, True),
                "ep-train": ((4, 2048, 2048, 64, 4, 128), torch.bfloat16,
-                            ATTN_BF16_TOL, True)}
+                            ATTN_BF16_TOL, True),
+               "ckpt-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
+                              ATTN_BF16_TOL, True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -439,6 +468,25 @@ AUTOTUNE = dict(chips=8, micro_batches=(1, 2, 4, 8))
 # and 2.1e-3 against grad_accum 4; a dropped microbatch of the eight moves
 # a gradient by about an eighth or more
 PP_CHECK_TOL = {"scalar": 1e-4, "grad": {8: 1e-5, 4: 2e-2}}
+# [ckpt]: llama3.2-1b at full width and depth through ``launch.train.train``
+# with a checkpoint directory, the [dense-train] run's shape (seq 2048,
+# batch 8, grad_accum 4, AdamW): (A) ``first`` steps into a fresh
+# directory, (B) the same directory to ``steps`` (it restores step
+# ``first``), (C) ``steps`` steps with no directory.  B's losses after the
+# restore and its final parameters and moments must equal C's bit for bit;
+# if two uninterrupted runs (C and one more) already differ, B is held to
+# ``spread_factor`` times their measured spread instead
+CKPT = dict(DENSE, steps=4, first=2, spread_factor=2.0)
+# [netprof]: the collective sweep over 4 logical ranks of the card: the five
+# kinds in fp32, bf16 and int8, on the flat mesh and the 2 x 2 sub-axes, 5
+# samples a point (the median recorded); the concurrent sweep (2 streams,
+# fp32, the default payloads) beside it.  Payloads: the sweep's default 4
+# KiB .. 4 MiB and on to 256 MiB: up to 4 MiB a collective of ranks sharing
+# the card costs the same at every payload (its launches and the host
+# loop; measured on the H100), so the copies' rate shows only above it, and
+# the pp x dp plan reduces 749 MB a stage
+NETPROF = dict(ranks=4, dtypes=("float32", "bfloat16", "int8"), repeats=5,
+               streams=2, payload_bytes=tuple(2**p for p in range(12, 29, 2)))
 
 
 def phase(tag: str, **fields) -> None:
@@ -3201,6 +3249,333 @@ def obs_phases(dev, gen, failures: list) -> list:
     return rows
 
 
+# -- this slice: checkpoint and resume, fault tolerance, the interconnect sweep
+
+
+def ckpt_state_bytes(cfg) -> int:
+    """Bytes of a train state under AdamW: the parameters, both fp32
+    moments and the two int32 counters (step, count)."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import leaves
+
+    params, _ = build_model(cfg).abstract_params()
+    return sum(math.prod(p.shape) * (p.dtype.itemsize + 8)
+               for p in leaves(params)) + 8
+
+
+def state_diff(a, b) -> dict:
+    """Two train states compared by part (``params``, ``opt_state/m``,
+    ``opt_state/v``, the counters): leaves, leaves equal bit for bit, the
+    largest absolute difference and the largest relative L2 difference of
+    a leaf."""
+    from repro_torch.tree import flatten_with_path
+
+    other = dict(flatten_with_path(b))
+    out: dict = {}
+    for path, x in flatten_with_path(a):
+        y = other[path]
+        part = ("/".join(path[:2]) if path[:2] in (("opt_state", "m"),
+                                                   ("opt_state", "v"))
+                else "params" if path[0] == "params" else "counters")
+        d = out.setdefault(part, {"leaves": 0, "equal": 0, "max_abs": 0.0,
+                                  "max_rel_l2": 0.0})
+        d["leaves"] += 1
+        if torch.equal(x, y):
+            d["equal"] += 1
+            continue
+        d["max_abs"] = max(d["max_abs"],
+                           float((x.double() - y.double()).abs().max()))
+        d["max_rel_l2"] = max(d["max_rel_l2"], rel_l2(x.float(), y.float()))
+    return out
+
+
+def ckpt_run(dev, cfg, tag: str, steps: int, failures: list, ckpt_dir=None,
+             counters=None) -> dict:
+    """``launch.train.train`` on the [ckpt] run's shape up to ``steps``,
+    with ``ckpt_dir`` or none; per step the loss, times, launches (each
+    must be ``train_launches``'s) and the straggler verdict."""
+    from repro_torch.launch.train import train
+
+    want = train_launches(cfg, CKPT["grad_accum"])
+    counters = counters or kernel_counters()
+    seen = {k: c.count for k, c in counters.items()}
+    steps_out, events, logs = [], [], []
+
+    def on_step(i, rec):
+        rec = dict(rec, step=i + 1, launches={
+            k: c.count - seen[k] for k, c in counters.items()},
+            peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        torch.cuda.reset_peak_memory_stats(dev)
+        seen.update({k: c.count for k, c in counters.items()})
+        steps_out.append(rec)
+        phase(f"ckpt-{tag}-step", **rec)
+        for k, n in rec["launches"].items():
+            if n != want[k]:
+                failures.append(f"ckpt {tag} step {i + 1}: {n} {k} "
+                                f"launches, expected {want[k]}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state, losses = train(cfg, steps=steps, seq=CKPT["seq"],
+                          batch=CKPT["batch"], grad_accum=CKPT["grad_accum"],
+                          seed=CKPT["seed"], device=dev, ckpt_dir=ckpt_dir,
+                          on_step=on_step, on_ckpt=events.append,
+                          log_fn=logs.append)
+    torch.cuda.synchronize(dev)
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"ckpt {tag}: non-finite losses {losses}")
+    return {"state": state, "losses": losses, "steps": steps_out,
+            "events": events, "seconds": time.perf_counter() - t0,
+            "lines": [ln for ln in logs
+                      if ln.startswith(("[restore]", "[ckpt]"))]}
+
+
+def ckpt_phase(dev, failures: list) -> dict:
+    """``[ckpt]`` and ``[ft]``: llama3.2-1b at full width and depth trained
+    through ``launch.train.train`` with a checkpoint directory: (A)
+    ``CKPT["first"]`` steps into a fresh directory, (B) the same directory
+    to ``CKPT["steps"]`` (restored from step ``first``), (C) the same steps
+    with no directory.  A and B are the path: the kernel counts go from 0
+    before A and are read after B.  B's losses after the restore and its
+    final parameters and moments are held against C's bit for bit (or, if
+    two uninterrupted runs differ, against ``spread_factor`` times their
+    spread); the checkpoint's bytes, the blocking snapshot, the background
+    write and the restore are timed, the disk's free space checked first;
+    the directory is removed afterwards.  ``[ft]``: the heartbeat file and
+    the straggler policy's verdict on each step."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(DENSE_ARCH)
+    need = ckpt_state_bytes(cfg)
+    base = os.path.join(ROOT, "build")
+    os.makedirs(base, exist_ok=True)
+    free = shutil.disk_usage(base).free
+    if free < 2.05 * need:
+        failures.append(f"ckpt: two checkpoints of {need} bytes do not fit "
+                        f"the {free} bytes free under {base}")
+        phase("ckpt", ok=False, checkpoint_bytes=need, free_bytes=free)
+        return {"launches": None}
+    counters = kernel_counters()
+    root = tempfile.mkdtemp(prefix="ckpt-", dir=base)
+    try:
+        # the main path: counts from zero before A, read right after B
+        for c in counters.values():
+            c.reset()
+        a = ckpt_run(dev, cfg, "A", CKPT["first"], failures, root, counters)
+        a["state"] = None
+        b = ckpt_run(dev, cfg, "B", CKPT["steps"], failures, root, counters)
+        launches = {k: c.count for k, c in counters.items()}
+        listing = sorted(os.listdir(root))
+        with open(os.path.join(root, "hb", "host_0.hb")) as f:
+            heartbeat = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    c = ckpt_run(dev, cfg, "C", CKPT["steps"], failures)
+    first = CKPT["first"]
+    diff = state_diff(b["state"], c["state"])
+    bitwise = (all(d["equal"] == d["leaves"] for d in diff.values())
+               and b["losses"] == c["losses"][first:])
+    spread = None
+    if not bitwise:
+        # two uninterrupted runs: the nondeterminism B is held to
+        c2 = ckpt_run(dev, cfg, "C2", CKPT["steps"], failures)
+        spread = state_diff(c2["state"], c["state"])
+        spread["losses"] = [abs(x - y) for x, y in
+                            zip(c2["losses"], c["losses"])]
+        c2["state"] = None
+        k = CKPT["spread_factor"]
+        for part, d in diff.items():
+            lim = k * spread[part]["max_rel_l2"]
+            if d["max_rel_l2"] > lim:
+                failures.append(f"ckpt: resumed {part} differs from the "
+                                f"uninterrupted run by {d['max_rel_l2']:.3g} "
+                                f"(relative L2), over {k} x the spread of "
+                                f"two uninterrupted runs ({lim:.3g})")
+        lim = k * max(spread["losses"][first:])
+        for x, y in zip(b["losses"], c["losses"][first:]):
+            if abs(x - y) > lim:
+                failures.append(f"ckpt: resumed loss {x} vs {y}, over "
+                                f"{lim:.3g}")
+    want_steps = {"A": list(range(1, first + 1)),
+                  "B": list(range(first + 1, CKPT["steps"] + 1))}
+    for tag, run in (("A", a), ("B", b)):
+        if [r["step"] for r in run["steps"]] != want_steps[tag]:
+            failures.append(f"ckpt {tag}: steps "
+                            f"{[r['step'] for r in run['steps']]}, expected "
+                            f"{want_steps[tag]}")
+    saves = {tag: next(e for e in run["events"] if e["event"] == "save")
+             for tag, run in (("A", a), ("B", b))}
+    restored = [e for e in b["events"] if e["event"] == "restore"]
+    if not restored or restored[0]["step"] != first:
+        failures.append(f"ckpt B: restore events {b['events']}")
+    if listing != ["hb", f"step_{first:08d}",
+                   f"step_{CKPT['steps']:08d}"]:
+        failures.append(f"ckpt: directory holds {listing}")
+    if saves["A"]["bytes"] != need:
+        failures.append(f"ckpt: {saves['A']['bytes']} bytes written, "
+                        f"expected {need}")
+    phase("ckpt", arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+          **{k: v for k, v in CKPT.items() if k != "spread_factor"},
+          free_bytes_before=free, directory_base=base,
+          checkpoint_bytes=saves["A"]["bytes"],
+          snapshot_ms={t: 1e3 * e["snapshot_s"] for t, e in saves.items()},
+          write_s={t: e["write_s"] for t, e in saves.items()},
+          restore_s=restored[0]["seconds"] if restored else None,
+          run_seconds={"A": a["seconds"], "B": b["seconds"],
+                       "C": c["seconds"]},
+          losses={"A": a["losses"], "B": b["losses"], "C": c["losses"]},
+          resumed_equals_uninterrupted_bitwise=bitwise, state_diff=diff,
+          uninterrupted_spread=spread, launches=launches,
+          launcher_lines=a["lines"] + b["lines"], listing=listing)
+    phase("ft", heartbeat=heartbeat,
+          straggler_verdicts={t: [r["straggler"] for r in run["steps"]]
+                              for t, run in (("A", a), ("B", b),
+                                             ("C", c))})
+    if heartbeat.get("step") != CKPT["steps"] - 1:
+        failures.append(f"ft: heartbeat {heartbeat}")
+    return {"launches": launches}
+
+
+def ckpt_kernel_table(dev, gen, platform, launches, failures: list) -> list:
+    """The kernels at the [ckpt] runs' shapes (one llama3.2-1b microbatch
+    of 2 x 2048), launches from runs A and B."""
+    from repro_torch.configs.base import get_config
+
+    cfg, chip = get_config(DENSE_ARCH), platform.chip
+    steps = CKPT["steps"]       # A's and B's together
+
+    def counts(kernel):
+        return ((None, None) if launches is None
+                else (launches[kernel], launches[kernel] / steps))
+
+    b, s = CKPT["batch"] // CKPT["grad_accum"], CKPT["seq"]
+    return [rmsnorm_row(dev, gen, chip, "rmsnorm@ckpt-train",
+                        (b, s, cfg.d_model), cfg.norm_eps,
+                        *counts("rmsnorm"), failures),
+            flash_train_row(dev, gen, chip, "ckpt-train",
+                            *counts("flash_attention"), failures)]
+
+
+def netprof_phase(dev, failures: list) -> None:
+    """``[netprof]``: the collective sweep over ``NETPROF["ranks"]``
+    logical ranks of the card (every kind, dtype and axis of the grid),
+    the concurrent sweep, the entries by kind and group, the fitted
+    latency and wire rate, ``calibrate --verify`` on the saved DB, the
+    acceptance graph and the [pp-plan] pp = 2 x dp = 2 int8 plan priced
+    measured against the H100 SXM data sheet's NVLink ring, and the train
+    launcher's plan and parity reports with ``--netprof-db``: every
+    collective node priced from measurements."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.database import ProfileDB
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.strategy import model_pipeline_graph
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import build_model
+    from repro_torch.models.pipeline import make_plan
+    from repro_torch.netprof import calibrate
+    from repro_torch.netprof.model import COLLECTIVES, fit_link_contention
+    from repro_torch.netprof.pricing import PROV_RING
+    from repro_torch.netprof.report import acceptance_graph, measured_vs_ring
+    from repro_torch.netprof.sweep import (
+        SweepConfig,
+        mesh_plans,
+        sweep_collectives,
+        sweep_concurrent,
+    )
+
+    name = H100_SXM.name
+    cfg_sweep = SweepConfig(payload_bytes=NETPROF["payload_bytes"],
+                            dtypes=NETPROF["dtypes"],
+                            repeats=NETPROF["repeats"])
+    db = ProfileDB()
+    t0 = time.perf_counter()
+    n = sweep_collectives(db, platform=name, config=cfg_sweep,
+                          ranks=NETPROF["ranks"], device=dev)
+    sweep_s = time.perf_counter() - t0
+    axes = sum(len(p.sweep_axes) for p in mesh_plans(NETPROF["ranks"]))
+    want = (len(cfg_sweep.collectives) * len(cfg_sweep.payload_bytes)
+            * len(cfg_sweep.dtypes) * axes)
+    if n != want:
+        failures.append(f"netprof: {n} entries, expected {want}")
+    t0 = time.perf_counter()
+    nc = sweep_concurrent(db, platform=name,
+                          config=SweepConfig(repeats=NETPROF["repeats"]),
+                          streams=NETPROF["streams"], ranks=NETPROF["ranks"],
+                          device=dev)
+    concurrent_s = time.perf_counter() - t0
+    by_kind = {}
+    for kind in COLLECTIVES:
+        for e in db.entries(name, kind):
+            g = by_kind.setdefault(kind, {}).setdefault(
+                f"g{e.args['devices']}", {"entries": 0, "us": {}})
+            g["entries"] += 1
+            if e.args["dtype"] == "float32":
+                key = f"{e.args['per_device_bytes']}B@{e.args['axis']}"
+                g["us"][key] = 1e6 * e.mean_s
+    tmp = tempfile.mkdtemp(prefix="netprof-")
+    try:
+        path = os.path.join(tmp, "netprof_db.json")
+        db.save(path)
+        verify_lines: list = []
+        rc = calibrate.verify(path, log_fn=verify_lines.append)
+        if rc:
+            failures.append(f"netprof: calibrate --verify exit {rc}: "
+                            f"{verify_lines[-1:]}")
+        acceptance = measured_vs_ring(acceptance_graph(), db, H100_SXM)
+        cfg = get_config(DENSE_ARCH)
+        plan = make_plan(cfg, PP["pp"], PP["microbatches"],
+                         schedule=PP["schedule"])
+        mbs = PP["batch"] // (PP["dp"] * PP["microbatches"])
+        params, _ = build_model(cfg).abstract_params()
+        graph = model_pipeline_graph(
+            cfg, plan.strategy(dp=PP["dp"], compression=PP["compression"]),
+            mbs, PP["seq"], params=params)
+        pp_plan = measured_vs_ring(graph, db, H100_SXM)
+        logs: list = []
+        est, _ = launcher.netprof_estimator(path, log_fn=logs.append)
+        launcher.pipeline_plan_report(
+            cfg, pp=PP["pp"], schedule=PP["schedule"], vstages=1,
+            microbatches=PP["microbatches"], batch=PP["batch"],
+            seq=PP["seq"], netprof_db=path, log_fn=logs.append)
+        parity = launcher.pipeline_parity_report(
+            plan, micro_batch=mbs, seq=PP["seq"], dp=PP["dp"],
+            compression=PP["compression"], estimator=est,
+            log_fn=logs.append)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for what, r in (("acceptance", acceptance), ("pp-plan", pp_plan)):
+        rings = sum(s.get(PROV_RING, 0) for s in r.provenance.values())
+        if r.ring_fallbacks or rings:
+            failures.append(f"netprof {what}: {rings} collective nodes "
+                            f"ring-priced: {r.provenance}")
+    launcher_rings = sum(s.get(PROV_RING, 0)
+                         for s in parity["provenance"].values())
+    if launcher_rings:
+        failures.append(f"netprof: the launcher's --netprof-db parity "
+                        f"priced {launcher_rings} nodes from the ring")
+    fits = {kind: {f"g{g}": {"alpha_us": 1e6 * m.curves[g].alpha,
+                             "wire_GB_per_s":
+                                 1e-9 / m.curves[g].sec_per_wire_byte}
+                   for g in m.groups}
+            for kind, m in est.collective_pricer.models.items()}
+    contention = fit_link_contention(db, name)
+    phase("netprof", ranks=NETPROF["ranks"], dtypes=NETPROF["dtypes"],
+          payload_bytes=cfg_sweep.payload_bytes, entries=n,
+          entries_expected=want, concurrent_entries=nc, sweep_s=sweep_s,
+          concurrent_s=concurrent_s, meta=db.meta(name)["netprof"],
+          by_kind_and_group=by_kind, fits=fits,
+          contention=contention.describe() if contention else None,
+          verify_lines=verify_lines, acceptance_lines=acceptance.lines(),
+          pp_plan=plan.strategy(dp=PP["dp"],
+                                compression=PP["compression"]).describe(),
+          pp_plan_lines=pp_plan.lines(),
+          launcher_lines=[ln for ln in logs if ln.startswith(
+              ("[netprof]", "[pp-plan]", "[pp-parity]"))],
+          note="ring: the H100 SXM data sheet's NVLink (450 GB/s a "
+               "direction); measured: 4 logical ranks sharing one card, "
+               "their collectives device-local copies, not an NVLink time")
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -3227,15 +3602,16 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs"),
+    ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
+                                       "netprof"),
                     help="kernels: build, check and time the kernels alone "
-                         "(no serve or train run, no launch counts); pp, ep "
-                         "or obs: build and check the kernels, then that "
-                         "slice's phases alone (remat-dots, pp-*, autotune; "
-                         "ep-*; or serve-shard, serve-obs, serve-analyze "
-                         "and pp-train with pp-analyze and pp-obs; the "
-                         "layer profile into a fresh ProfileDB).  None "
-                         "prints the ok line")
+                         "(no serve or train run, no launch counts); pp, ep, "
+                         "obs, ckpt or netprof: build and check the kernels, "
+                         "then that slice's phases alone (remat-dots, pp-*, "
+                         "autotune; ep-*; serve-shard, serve-obs, "
+                         "serve-analyze and pp-train with pp-analyze and "
+                         "pp-obs; ckpt and ft; netprof; the layer profile "
+                         "into a fresh ProfileDB).  None prints the ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -3287,6 +3663,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         table += pp_kernel_table(dev, gen, platform, pctx["launches"],
                                  failures)
+        print(json.dumps({"kernels": table}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
+    if args.only in ("ckpt", "netprof"):
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        table = []
+        if args.only == "ckpt":
+            launches = ckpt_phase(dev, failures)["launches"]
+            torch.cuda.empty_cache()
+            table = ckpt_kernel_table(dev, gen, platform, launches, failures)
+        else:
+            netprof_phase(dev, failures)
         print(json.dumps({"kernels": table}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
@@ -3378,6 +3769,12 @@ def main() -> int:
     # this slice: the slot-sharded decode, the launchers' --obs and
     # --analyze (the pp ones ran with [pp-train])
     table += obs_phases(dev, gen, failures)
+    torch.cuda.empty_cache()
+    # this slice: checkpoint and resume with fault tolerance, the sweep
+    launches = ckpt_phase(dev, failures)["launches"]
+    torch.cuda.empty_cache()
+    table += ckpt_kernel_table(dev, gen, platform, launches, failures)
+    netprof_phase(dev, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -11,9 +11,8 @@ Exit status 0 when every analyzed plan is free of error-level findings,
 (A005+); ``--serve-json`` writes that half — findings plus the per-arch
 coverage documents — as its own artifact.
 
-A copy of the JAX package's ``analysis/__main__.py``.  ``--netprof-db``
-needs the launcher's calibrated-interconnect estimator, which the port
-has not taken over yet (ROADMAP.md, A14): it raises.
+A copy of the JAX package's ``analysis/__main__.py``; ``--netprof-db``
+prices through the train launcher's ``netprof_estimator``.
 """
 from __future__ import annotations
 
@@ -51,10 +50,9 @@ def main(argv=None) -> int:
 
     estimator = None
     if args.netprof_db:
-        raise NotImplementedError(
-            "--netprof-db: the calibrated-interconnect estimator "
-            "(netprof sweep, ROADMAP.md A14) is not ported yet"
-        )
+        from repro_torch.launch.train import netprof_estimator
+
+        estimator, _ = netprof_estimator(args.netprof_db)
 
     serve_report = None
     if args.serve_trace:

@@ -2,10 +2,11 @@
 
 The torch counterpart of the JAX package's ``core/profiler.py``: profiles the
 basic execution units of LM workloads — matmul, elementwise,
-transcendental, reduction, gather, dynamic-update-slice — over a grid of
-argument values, and records mean/std timings into the :class:`ProfileDB`,
-with the same op families and argument keys as the JAX package.  The
-collective sweep is not ported (ROADMAP.md, A14).
+transcendental, reduction, gather, dynamic-update-slice, and (over a mesh of
+two or more logical ranks) the collectives — over a grid of argument values,
+and records mean/std timings into the :class:`ProfileDB`, with the same op
+families and argument keys as the JAX package.  The full collective sweep
+(every kind, sub-axis groups, dtypes) is ``repro_torch.netprof.sweep``.
 
 On a CUDA device the ops run on the card on tensors there, and the timer
 synchronises the card before every clock read, so a sample covers the device
@@ -271,12 +272,63 @@ class OfflineProfiler:
             count += 2
         return count
 
+    # -- collectives over a mesh of logical ranks (repro_torch.dist.mesh) ----
+
+    def profile_collectives(
+        self, sizes: Optional[list[int]] = None, values_per_arg: int = 5,
+        ranks: Optional[int] = None,
+    ) -> int:
+        """All-reduce, all-gather and a ring permute over a flat mesh of
+        ``ranks`` logical ranks on this profiler's device.  ``ranks``
+        defaults to the visible CUDA devices (1 on the CPU), the
+        reference's ``jax.device_count()``; below 2 nothing is recorded, as
+        there.  On one card the ranks share it: the entries price
+        collectives among ranks on one card (device-local copies)."""
+        from repro_torch.dist.mesh import make_mesh
+
+        if ranks is None:
+            ranks = (torch.cuda.device_count() if self.device.type == "cuda"
+                     else 1)
+        if ranks < 2:
+            return 0
+        sizes = _grid(sizes or [2**p for p in range(12, 24, 2)],
+                      values_per_arg)
+        mesh = make_mesh((ranks,), ("x",), self.device)
+        perm = [(i, (i + 1) % ranks) for i in range(ranks)]
+        kinds = {
+            "all-reduce": lambda xs: mesh.psum(xs, "x"),
+            "all-gather": lambda xs: mesh.all_gather(xs, "x"),
+            "collective-permute": lambda xs: mesh.ppermute(xs, "x", perm),
+        }
+        nb = self._nb
+        count = 0
+        for s in sizes:
+            per_dev = max(s // nb // ranks, 1)
+            xs = {c: self._ones((per_dev,)) for c in mesh.coords()}
+            for name, fn in kinds.items():
+                mean, std = self._time(lambda: fn(xs))
+                # payload semantics must match collective_time /
+                # CollectiveModel: all-gather records its OUTPUT bytes
+                payload = per_dev * nb * (ranks if name == "all-gather"
+                                          else 1)
+                self.db.add(
+                    self.platform, name,
+                    ProfileEntry(
+                        {"per_device_bytes": payload, "devices": ranks},
+                        mean, std, self.repeats,
+                        bytes=float(payload),
+                    ),
+                )
+                count += 1
+        return count
+
     def profile_all(self) -> int:
         n = 0
         n += self.profile_matmul()
         n += self.profile_elementwise()
         n += self.profile_reduction()
         n += self.profile_memory_ops()
+        n += self.profile_collectives()
         return n
 
 

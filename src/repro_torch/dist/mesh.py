@@ -1,8 +1,8 @@
 """A mesh of logical ranks with named axes, and the collectives over an axis.
 
 The counterpart of ``jax.make_mesh`` and of the ``shard_map`` collectives
-(``psum``, ``pmean``, ``ppermute``, ``all_gather``, ``all_to_all``) the JAX
-package's executors call.  The JAX executors are single-controller SPMD
+(``psum``, ``pmean``, ``ppermute``, ``all_gather``, ``all_to_all``,
+``psum_scatter``) the JAX package's executors and collective sweep call.  The JAX executors are single-controller SPMD
 programs: one process, one body per device of a named mesh.  The port keeps
 that design: one process drives every logical rank of a :class:`Mesh` in
 turn, and a collective is a plain function over the per-rank tensors of one
@@ -35,7 +35,8 @@ from repro_torch.device import resolve_device
 # bytes moved by the collectives since the last reset, by kind:
 # "ppermute" (one per hop), "psum" (each rank's contribution), "psum_int8"
 # (compressed payloads, counted by dist.compress), "all_gather",
-# "all_to_all" (each rank's whole payload, its own piece included)
+# "all_to_all" (each rank's whole payload, its own piece included),
+# "psum_scatter" (each rank's whole input)
 TRAFFIC: dict[str, int] = {}
 
 
@@ -124,6 +125,10 @@ class Mesh:
     def all_to_all(self, values: dict, axis: str, split_axis: int,
                    concat_axis: int) -> dict:
         return self._over(all_to_all, values, axis, split_axis, concat_axis)
+
+    def psum_scatter(self, values: dict, axis: str,
+                     scatter_dimension: int = -1) -> dict:
+        return self._over(psum_scatter, values, axis, scatter_dimension)
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
@@ -226,3 +231,24 @@ def all_to_all(xs: list, devices: list, split_axis: int,
         return [torch.stack([hop(pieces[j][r], devices[r], "all_to_all")
                              for j in range(n)], dim=concat_axis)
                 for r in range(n)]
+
+
+def psum_scatter(xs: list, devices: list, scatter_dimension: int = -1) -> list:
+    """``jax.lax.psum_scatter(..., tiled=True)`` over the group: the sum
+    over the group, cut into the group's size of equal blocks along
+    ``scatter_dimension``; rank ``r`` gets block ``r`` on its device.
+    Counts each rank's whole input under ``"psum_scatter"``
+    (the per-device input payload a reduce-scatter is priced by)."""
+    n = len(xs)
+    if xs[0].shape[scatter_dimension] % n:
+        raise ValueError(f"psum_scatter over {n} ranks: dim "
+                         f"{scatter_dimension} of {tuple(xs[0].shape)} does "
+                         f"not split {n} ways")
+    home = xs[0].device
+    total = None
+    for x in xs:
+        _count("psum_scatter", nbytes(x))
+        x = x.to(home)
+        total = x.clone() if total is None else total + x
+    return [blk.to(d).contiguous()
+            for blk, d in zip(total.chunk(n, scatter_dimension), devices)]

@@ -52,14 +52,29 @@ it:
         --pp 2 --microbatches 2 --analyze --obs --trace-out /tmp/t.json
 
 Plans are priced on the launcher's platform: the card's spec, or
-``CPU_HOST`` with ``--device cpu``.  The shared flags are declared in
+``CPU_HOST`` with ``--device cpu``.  ``--netprof-db db.json`` prices them
+instead from a calibrated interconnect (``python -m
+repro_torch.netprof.calibrate``): the DB's platform, its collectives from
+the measured chain (``[netprof]`` lines give each kind's provenance), at
+every place the plan is priced (``[pp-plan]``, ``[pp-parity]``,
+``--analyze``, ``--obs``).  The shared flags are declared in
 ``launch/spec.py``, as the reference's.
 
-Not ported yet, and refused with the ROADMAP.md item that brings them:
-``--ckpt-dir`` (checkpointing, A12) and ``--netprof-db`` (the
-calibrated-interconnect estimator, A14).  ``--overlap-comm`` is accepted
-and changes nothing: the executor always elides the exchanges no rank
-receives (``train.step.make_pipeline_train_step``).  Every family trains
+``--ckpt-dir DIR`` checkpoints the train state (``repro_torch.ckpt``, the
+reference's format 2): the newest valid checkpoint there is restored before
+the first step (``[restore] resumed from step N``; ``--no-restore``
+starts afresh), the data resume at that step, a checkpoint is taken every
+``ckpt_every`` steps (50) and at the end through the async writer (the
+step blocks only on the host copy).  Each step writes a heartbeat
+(``DIR/hb``, else under the temporary directory) and feeds the step-time
+monitor and the straggler policy (``repro_torch.ft``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --smoke --device cpu --steps 4 --seq 64 --batch 4 --ckpt-dir /tmp/ck
+
+``--overlap-comm`` is accepted and changes nothing: the executor always
+elides the exchanges no rank receives
+(``train.step.make_pipeline_train_step``).  Every family trains
 unpipelined; ``--pp`` takes the ``dense`` and ``moe`` families, as the
 reference's.
 """
@@ -68,16 +83,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import tempfile
+import time
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.ckpt import AsyncCheckpointer, restore
+from repro_torch.ckpt.checkpoint import tree_bytes
 from repro_torch.configs.base import ShapeConfig, get_config, smoke_variant
 from repro_torch.core.estimator import OpTimeEstimator
 from repro_torch.core.profiler import platform_of
 from repro_torch.data import make_train_iterator
 from repro_torch.device import resolve_device
 from repro_torch.dist import mesh as M
+from repro_torch.ft import HeartbeatMonitor, StepTimeMonitor, StragglerPolicy
 from repro_torch.models import build_model
 from repro_torch.models.moe import EP_CALLS, reset_ep_calls
 from repro_torch.models.sharding import make_ctx, use_sharding
@@ -88,12 +108,6 @@ from repro_torch.train.step import (
     make_sharded_train_step,
     run_timed_step,
 )
-
-_NOT_PORTED = {
-    "ckpt_dir": "checkpointing (ROADMAP.md, A12)",
-    "netprof_db": "the calibrated-interconnect estimator (ROADMAP.md, A14)",
-}
-
 
 def default_ranks(device) -> int:
     """One logical rank per visible CUDA device, or 1."""
@@ -149,30 +163,90 @@ def comm_report(cfg, mesh, params, *, batch: int, seq: int,
         )
 
 
+# one launch loads and fits a calibration DB once: the plan, parity,
+# analysis and obs reports share the estimator (and its provenance ledger)
+_NETPROF_CACHE: dict = {}
+
+
+def netprof_estimator(db_path: str, log_fn=print):
+    """(estimator, platform) priced from a calibrated interconnect DB.
+
+    Loads the ProfileDB written by ``python -m repro_torch.netprof.calibrate``,
+    picks the calibrated platform (``netprof.calibrate.calibrated_platform``:
+    ``cpu_host`` when present, else the DB's first platform; a spec-sheet
+    platform keeps its spec, the others are calibrated from the DB's own
+    compute entries), and builds an :class:`OpTimeEstimator` whose
+    collectives go through the measured chain (exact DB hit -> fitted
+    CollectiveModel -> ring; ``repro_torch.netprof``).  Memoized per
+    (path, mtime, size): repeated calls within one launch reuse the fitted
+    estimator and log its banner once.
+    """
+    from repro_torch.core.database import ProfileDB
+    from repro_torch.netprof.calibrate import calibrated_platform
+    from repro_torch.netprof.pricing import netprof_meta
+
+    st = os.stat(db_path)
+    cache_key = (os.path.abspath(db_path), st.st_mtime_ns, st.st_size)
+    hit = _NETPROF_CACHE.get(cache_key)
+    if hit is not None:
+        return hit
+    db = ProfileDB.load(db_path)
+    if not db.platforms():
+        raise ValueError(f"--netprof-db {db_path}: no platforms in DB")
+    name, platform = calibrated_platform(db)
+    stamp = netprof_meta(db, name)
+    if stamp:
+        log_fn(
+            f"[netprof] {db_path}: platform {name}, "
+            f"{stamp.get('entries', 0)} collective measurements, "
+            f"groups {stamp.get('groups')}, "
+            f"collectives {len(stamp.get('collectives', []))}, "
+            f"backend {stamp.get('backend')} "
+            f"({stamp.get('ranks', stamp.get('device_count'))} ranks on "
+            f"{stamp.get('device_count')} devices)"
+        )
+    else:
+        log_fn(f"[netprof] {db_path}: platform {name} "
+               f"(no netprof sweep stamp — collectives may ring-fall back)")
+    out = (OpTimeEstimator(platform, db), platform)
+    _NETPROF_CACHE[cache_key] = out
+    return out
+
+
 def pipeline_plan_report(cfg, *, pp: int, schedule: str, vstages: int,
                          microbatches: int, batch: int, seq: int,
-                         estimator=None, platform=None, log_fn=print):
+                         netprof_db: Optional[str] = None, log_fn=print):
     """Simulate the requested pipeline schedule for this config and log it
     (marked simulated): the same step table the executor runs, priced by
     the DES through ``Autotuner.evaluate``; bubble, comm share and the
-    scheduled boundary traffic.  Logs instead of failing when the config
-    cannot realize the schedule."""
+    scheduled boundary traffic.  With ``netprof_db`` the plan is priced on
+    the calibrated platform with measured collectives, and each kind's
+    provenance is logged.  Logs instead of failing when the config cannot
+    realize the schedule."""
     from repro_torch.core.autotuner import Autotuner
     from repro_torch.core.strategy import Strategy
     from repro_torch.models.pipeline import model_layer_cost
 
     strategy = Strategy(pp=pp, microbatches=microbatches, schedule=schedule,
                         vstages=vstages)
-    kw = {}
-    if estimator is not None:
-        kw = {"estimator": estimator, "platform": platform}
+    est = platform = None
+    if netprof_db:
+        est, platform = netprof_estimator(netprof_db, log_fn=log_fn)
     tuner = Autotuner(cfg, chips=pp, global_batch=max(batch, microbatches),
-                      seq=seq, **kw)
+                      seq=seq,
+                      **({"platform": platform, "estimator": est}
+                         if est is not None else {}))
     try:
         result = tuner.evaluate(strategy)
     except (ValueError, AssertionError, ZeroDivisionError) as e:
         log_fn(f"[pp-plan] {strategy.describe()} not realizable: {e}")
         return None
+    if est is not None and est.collective_pricer is not None:
+        for line in est.collective_pricer.report_lines():
+            log_fn(f"[netprof] {line}")
+        ring = est.collective_pricer.ring_fallbacks_for_profiled()
+        log_fn(f"[netprof] ring-fallback nodes for profiled collectives: "
+               f"{ring}")
     micro_bs = max(batch // microbatches, 1)
     cost = model_layer_cost(cfg, micro_bs, seq, tp=1)
     hops = strategy.make_pipeline_schedule().comm_bytes(cost.boundary_bytes)
@@ -188,7 +262,7 @@ def pipeline_plan_report(cfg, *, pp: int, schedule: str, vstages: int,
 
 def pipeline_parity_report(plan, *, micro_batch: int, seq: int, dp: int = 1,
                            compression: str = "none", params=None,
-                           log_fn=print) -> dict:
+                           estimator=None, log_fn=print) -> dict:
     """Model-derived simulated bytes against the executor's twins; raises
     on drift.
 
@@ -197,7 +271,9 @@ def pipeline_parity_report(plan, *, micro_batch: int, seq: int, dp: int = 1,
     scheduled boundary traffic the executor moves
     (``PipelinePlan.boundary_bytes_per_step``), and with ``dp > 1`` each
     stage's gradient all-reduce node to exactly
-    ``compressed_psum_bytes`` of that stage's parameter tree.  Returns the
+    ``compressed_psum_bytes`` of that stage's parameter tree.  With an
+    ``estimator`` (``--netprof-db``) every comm node is also priced through
+    its measured chain and each kind's provenance logged.  Returns the
     simulated byte counts.
     """
     from repro_torch.core.estimator import dist_comm_bytes
@@ -232,6 +308,21 @@ def pipeline_parity_report(plan, *, micro_batch: int, seq: int, dp: int = 1,
     log_fn(line + (" (parity ok)" if ok else " (PARITY MISMATCH)"))
     if not ok:
         raise AssertionError(f"pipeline byte parity drift: {out}")
+    if estimator is not None:
+        # bytes twin-exact AND time measured: the sim-vs-real loop closed
+        from repro_torch.netprof.pricing import PROV_RING, graph_provenance
+
+        for n in g.nodes:
+            if n.is_collective:
+                estimator.duration(n)
+        prov = graph_provenance(g)
+        for kind in sorted(prov):
+            s = prov[kind]
+            log_fn(f"[netprof] {kind}: "
+                   + " / ".join(f"{v} {k}" for k, v in sorted(s.items())))
+        rings = sum(s.get(PROV_RING, 0) for s in prov.values())
+        log_fn(f"[netprof] comm nodes ring-priced: {rings}")
+        out["provenance"] = prov
     return out
 
 
@@ -328,6 +419,14 @@ def _obs_report(rec, cfg, plan, mesh, params, *, batch: int, seq: int,
     return report, counts
 
 
+def _save(ckpt: AsyncCheckpointer, state, step: int, log_fn) -> None:
+    """Hand the state to the async writer; logs the blocking part."""
+    ckpt.save(state, step)
+    log_fn(f"[ckpt] step {step}: {ckpt.last['bytes'] / 1e9:.3f} GB "
+           f"snapshot to the host in {1e3 * ckpt.last['snapshot_s']:.1f} ms "
+           "(blocking)")
+
+
 def train(
     cfg,
     *,
@@ -345,31 +444,37 @@ def train(
     overlap_buckets: int = 0,
     ranks: Optional[int] = None,
     ckpt_dir: Optional[str] = None,
+    restore_from: bool = True,
     netprof_db: Optional[str] = None,
     analyze: bool = False,
     obs: bool = False,
     trace_out: str = "",
     run_spec=None,
     log_every: int = 10,
+    ckpt_every: int = 50,
+    host_id: int = 0,
+    num_hosts: int = 1,
     seed: int = 0,
     device="cuda",
     on_step: Optional[Callable[[int, dict], None]] = None,
     on_obs: Optional[Callable] = None,
+    on_ckpt: Optional[Callable[[dict], None]] = None,
     log_fn=print,
 ):
-    """Train ``steps`` steps; returns ``(state, losses)``.
+    """Train up to step ``steps``; returns ``(state, losses)`` (the losses
+    of the steps this call ran: from the restored step on, with
+    ``ckpt_dir``).
 
     ``on_step(i, record)`` is called after each step with its loss, the
-    model's ``ce`` and ``aux``, grad norm, learning rate, host milliseconds
-    and (on the card) device milliseconds.  With ``obs``, ``on_obs(report,
-    counts)`` gets the divergence report and the replay's measured and
-    skipped node counts (None, None without ``--pp``).
+    model's ``ce`` and ``aux``, grad norm, learning rate, host milliseconds,
+    (on the card) device milliseconds and the straggler policy's verdict
+    on this host.  With ``obs``, ``on_obs(report, counts)`` gets the
+    divergence report and the replay's measured and skipped node counts
+    (None, None without ``--pp``).  With ``ckpt_dir``, ``on_ckpt(event)``
+    gets the restore (``{"event": "restore", "step", "bytes", "seconds"}``)
+    and the last save once written (``{"event": "save", "step", "bytes",
+    "snapshot_s", "write_s", "path"}``).
     """
-    asked = {"ckpt_dir": bool(ckpt_dir), "netprof_db": bool(netprof_db)}
-    for key, on in asked.items():
-        if on:
-            raise NotImplementedError(f"{key}: {_NOT_PORTED[key]} is not "
-                                      "ported yet")
     dev = resolve_device(device)
     ranks = ranks or default_ranks(dev)
     shape = ShapeConfig("train_launch", seq, batch, "train")
@@ -385,9 +490,12 @@ def train(
     else:
         mesh = build_mesh(ranks, device=dev)
     dp = mesh.sizes["data"]
-    # plans are priced on the launcher's own platform: the card's, or the
-    # CPU host's
-    estimator = OpTimeEstimator(platform_of(dev))
+    # plans are priced on the launcher's own platform (the card's, or the
+    # CPU host's), or on a calibrated interconnect's
+    if netprof_db:
+        estimator, _ = netprof_estimator(netprof_db, log_fn=log_fn)
+    else:
+        estimator = OpTimeEstimator(platform_of(dev))
     if analyze:
         from repro_torch.core.strategy import Strategy
 
@@ -420,7 +528,9 @@ def train(
         log_fn(f"[pp-exec] executing {plan.describe()} on mesh "
                f"dp{dp}xpp{plan.pp} ({micro_bs} seqs/microbatch)")
         pipeline_parity_report(plan, micro_batch=micro_bs, seq=seq, dp=dp,
-                               compression=compression, log_fn=log_fn)
+                               compression=compression,
+                               estimator=estimator if netprof_db else None,
+                               log_fn=log_fn)
     # init and the steps under the sharding context: ep_a2a MoE layers
     # run expert-parallel over the mesh (models.moe)
     with use_sharding(ctx):
@@ -429,7 +539,32 @@ def train(
                            opt, compression=compression, dp=dp)
         comm_report(cfg, mesh, state.params, batch=batch, seq=seq,
                     compression=compression, log_fn=log_fn)
-        data = make_train_iterator(cfg, shape, seed=seed)
+        start_step = 0
+        ckpt = None
+        if ckpt_dir:
+            ckpt = AsyncCheckpointer(ckpt_dir)
+            if restore_from:
+                t0 = time.perf_counter()
+                out = restore(state, ckpt_dir, log_fn=log_fn)
+                if out is not None:
+                    state, start_step = out
+                    event = {"event": "restore", "step": start_step,
+                             "bytes": tree_bytes(state),
+                             "seconds": time.perf_counter() - t0}
+                    log_fn(f"[restore] resumed from step {start_step}")
+                    log_fn(f"[ckpt] restored {event['bytes'] / 1e9:.3f} GB "
+                           f"in {event['seconds']:.2f} s")
+                    if on_ckpt is not None:
+                        on_ckpt(event)
+        data = make_train_iterator(cfg, shape, num_hosts=num_hosts,
+                                   host_id=host_id, seed=seed,
+                                   start_step=start_step)
+        hb = HeartbeatMonitor(
+            os.path.join(ckpt_dir, "hb") if ckpt_dir
+            else os.path.join(tempfile.gettempdir(), "repro_torch_hb"),
+            num_hosts=num_hosts)
+        mon = StepTimeMonitor()
+        pol = StragglerPolicy()
         # disabled, the recorder's interval is exactly the two clock reads
         # a step's timing needs; with --obs it keeps the steps as spans
         rec = Recorder(enabled=obs)
@@ -438,7 +573,7 @@ def train(
         reset_ep_calls()
         t_train0 = rec.clock()
         try:
-            for i in range(steps):
+            for i in range(start_step, steps):
                 host_batch = next(data)
                 dev_batch = {k: torch.as_tensor(v, device=dev)
                              for k, v in host_batch.items()}
@@ -450,10 +585,14 @@ def train(
                 state, metrics, loss, dt = run_timed_step(
                     step_fn, state, dev_batch, rec, f"train_step{i}",
                     role="step", step=i)
+                mon.record(host_id, dt)
+                hb.beat(host_id, i)
+                verdicts = pol.assess(mon)
                 record = {"loss": loss,
                           "grad_norm": float(metrics["grad_norm"]),
                           "lr": float(metrics["lr"]), "host_ms": 1e3 * dt,
-                          "device_ms": None}
+                          "device_ms": None,
+                          "straggler": verdicts.get(host_id)}
                 if events is not None:
                     events[1].record()
                     events[1].synchronize()
@@ -462,18 +601,33 @@ def train(
                 losses.append(loss)
                 if on_step is not None:
                     on_step(i, record)
-                if (i + 1) % log_every == 0 or i == 0:
+                if (i + 1) % log_every == 0 or i == start_step:
                     log_fn(
                         f"[step {i + 1:5d}] loss={loss:.4f} "
                         f"gnorm={record['grad_norm']:.3f} "
                         f"lr={record['lr']:.2e} {record['host_ms']:.0f}ms "
                         f"{batch * seq / dt:,.0f} tok/s"
                     )
+                if ckpt and (i + 1) % ckpt_every == 0:
+                    _save(ckpt, state, i + 1, log_fn)
+                if verdicts.get(host_id) == "evict":
+                    log_fn(f"[straggler] host {host_id} flagged for "
+                           "eviction")
         finally:
             data.close()
+        if ckpt:
+            _save(ckpt, state, steps, log_fn)
+            ckpt.wait()
+            event = dict(ckpt.last, event="save", path=os.path.join(
+                ckpt_dir, f"step_{steps:08d}"))
+            log_fn(f"[ckpt] step {steps} written in {event['write_s']:.2f} "
+                   f"s (background) to {event['path']}")
+            if on_ckpt is not None:
+                on_ckpt(event)
     wall = rec.clock() - t_train0
-    if plan is not None:
-        moved = M.TRAFFIC.get("ppermute", 0) / (steps * dp * grad_accum)
+    ran = steps - start_step
+    if plan is not None and ran > 0:
+        moved = M.TRAFFIC.get("ppermute", 0) / (ran * dp * grad_accum)
         want = plan.boundary_bytes_per_step(micro_bs, seq)
         log_fn(f"[pp-parity] executed hops moved {moved:.0f} bytes a "
                f"pipeline pass (twin {want:.0f})")
@@ -481,11 +635,11 @@ def train(
             raise AssertionError(f"executed boundary bytes {moved} != twin "
                                  f"{want}")
     if cfg.moe is not None:     # which path each MoE layer took
-        log_fn(f"[moe] impl={cfg.moe.impl}: MoE calls by path over {steps} "
+        log_fn(f"[moe] impl={cfg.moe.impl}: MoE calls by path over {ran} "
                f"steps of {cfg.num_layers} layers (forward and remat "
                f"recompute): {dict(sorted(EP_CALLS.items()))}")
-    log_fn(f"[done] {steps} steps in {wall:.1f}s; "
-           f"loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    log_fn(f"[done] {ran} steps in {wall:.1f}s" + (
+        f"; loss {losses[0]:.3f} -> {losses[-1]:.3f}" if losses else ""))
     if obs:
         report, counts = _obs_report(
             rec, cfg, plan, mesh, state.params, batch=batch, seq=seq, dp=dp,
@@ -520,8 +674,12 @@ def main(argv=None) -> None:
     ap.add_argument("--d-model", dest="d_model", type=int, default=0,
                     help="override d_model (head_dim follows: d_model / "
                          "num_heads)")
-    # refused until ported (see _NOT_PORTED)
-    ap.add_argument("--ckpt-dir", dest="ckpt_dir", default=None)
+    ap.add_argument("--ckpt-dir", dest="ckpt_dir", default=None,
+                    help="checkpoint directory: restore the newest valid "
+                         "checkpoint there, save every 50 steps and at "
+                         "the end")
+    ap.add_argument("--no-restore", dest="no_restore", action="store_true",
+                    help="with --ckpt-dir: start from step 0")
     args = ap.parse_args(argv)
     spec = runspec.from_args(args)
 
@@ -542,13 +700,15 @@ def main(argv=None) -> None:
             cfg, pp=spec.pp, schedule=spec.pp_schedule,
             vstages=spec.vstages,
             microbatches=spec.microbatches or max(spec.pp, 1),
-            batch=spec.batch, seq=spec.seq)
+            batch=spec.batch, seq=spec.seq,
+            netprof_db=spec.netprof_db or None)
     train(cfg, steps=spec.steps, seq=spec.seq, batch=spec.batch, lr=args.lr,
           grad_accum=spec.grad_accum, compression=spec.compression,
           pp=spec.pp if pipeline_on else 0, pp_schedule=spec.pp_schedule,
           vstages=spec.vstages, microbatches=spec.microbatches,
           overlap_buckets=spec.overlap_buckets, ranks=args.ranks or None,
-          ckpt_dir=args.ckpt_dir, netprof_db=spec.netprof_db or None,
+          ckpt_dir=args.ckpt_dir, restore_from=not args.no_restore,
+          netprof_db=spec.netprof_db or None,
           analyze=spec.analyze, obs=spec.obs, trace_out=spec.trace_out,
           run_spec=spec, seed=spec.seed, device=args.device)
 

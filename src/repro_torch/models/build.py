@@ -9,7 +9,7 @@ functions on tensors::
     logits, cache = model.prefill(params, tokens)   # (B, S) tokens
                                                     # [+ patches or frames]
     logits, cache = model.decode(params, cache, token, cache_len)
-    axes = model.param_axes()                       # dense, moe and vlm
+    axes = model.param_axes()                       # logical axes
 
 The JAX package's ``prefill(params, batch)`` reads ``batch["patches"]``
 (vlm) and ``batch["frames"]`` (audio); here they are the keyword arguments
@@ -37,9 +37,6 @@ from repro_torch.tree import tree_map
 
 _MODULES = {"dense": transformer, "moe": transformer, "vlm": transformer,
             "ssm": hybrid, "hybrid": hybrid, "audio": encdec}
-# the families whose parameters have logical axes in the port (the others'
-# are queued in ROADMAP.md, A15)
-_AXES_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclass(frozen=True)
@@ -54,20 +51,18 @@ class Model:
     init_cache: Callable  # (batch, max_len, dtype, device) -> cache
     cache_axes: Callable  # () -> logical-axes tree matching init_cache
     # () -> logical-axes tree matching init's parameters (the JAX package's
-    # ``init`` returns it second); the dense, moe and vlm families
+    # ``init`` returns it second)
     param_axes: Callable
 
     def abstract_params(self, seed: int = 0):
         """``(tree, axes)``: the parameter tree's shapes and dtypes
         (:class:`ShapeDtype` leaves) without allocating it, ``init`` run on
-        fake tensors, and :meth:`param_axes` where the family has them
-        (else None)."""
+        fake tensors, and :meth:`param_axes`."""
         from torch._subclasses.fake_tensor import FakeTensorMode
 
         with FakeTensorMode():
             fake = self.init(torch.Generator().manual_seed(seed))
-        axes = (self.param_axes() if self.cfg.family in _AXES_FAMILIES
-                else None)
+        axes = self.param_axes()
         return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
                         fake), axes
 
@@ -112,11 +107,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return mod.cache_axes(cfg)
 
     def param_axes():
-        if cfg.family not in _AXES_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the logical axes of the {cfg.family!r} "
-                "family's parameters are not ported (ROADMAP.md, A15)")
-        return transformer.param_axes(cfg)
+        return mod.param_axes(cfg)
 
     return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
                  decode=decode, init_cache=init_cache, cache_axes=cache_axes,

@@ -70,6 +70,23 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_params`'s leaves: the axes tree the
+    JAX package's ``init_params`` returns beside the parameters."""
+    enc = {"attn": L.attention_axes(cfg), "mlp": dict(L.MLP_AXES),
+           "norm1": L.RMSNORM_AXES, "norm2": L.RMSNORM_AXES}
+    dec = {"self": L.attention_axes(cfg), "cross": L.attention_axes(cfg),
+           "mlp": dict(L.MLP_AXES)}
+    for i in (1, 2, 3):
+        dec[f"norm{i}"] = L.RMSNORM_AXES
+    axes = {"embed": L.EMBED_AXES, "frontend": ("frontend", "embed"),
+            "encoder": _prefix_layers(enc), "decoder": _prefix_layers(dec),
+            "enc_norm": L.RMSNORM_AXES, "final_norm": L.RMSNORM_AXES}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
+
+
 def _positions(b: int, s: int, device):
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
 

@@ -70,6 +70,23 @@ def init_superblock(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
+def superblock_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_superblock`'s leaves: each kind's
+    stack with a leading ``layers`` axis, the period's norms
+    ``("layers", "embed")``."""
+    kinds = _sublayer_kinds(cfg)
+    per_kind = {
+        "attn": lambda: L.attention_axes(cfg),
+        "mamba": lambda: dict(MB.MAMBA_AXES),
+        "mlp": lambda: dict(L.MLP_AXES),
+        "moe": lambda: M.moe_axes(cfg.moe),
+    }
+    axes = {k: _prefix_layers(per_kind[k]()) for k in per_kind
+            if any(k in (m, f) for m, f in kinds)}
+    axes["norm1"] = axes["norm2"] = ("layers", "embed")
+    return axes
+
+
 def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
                      decode_len=None):
     """Apply one interleave period.
@@ -163,6 +180,21 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, cfg.param_dtype
         )
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_params`'s leaves: the axes tree the
+    JAX package's ``init_params`` returns beside the parameters (a hybrid
+    superblock's stacked leaves carry ``layers`` twice, as there)."""
+    if cfg.family == "ssm":
+        blocks = {"mixer": dict(MB.MAMBA_AXES), "norm": L.RMSNORM_AXES}
+    else:
+        blocks = superblock_axes(cfg)
+    axes = {"embed": L.EMBED_AXES, "blocks": _prefix_layers(blocks),
+            "final_norm": L.RMSNORM_AXES}
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    return axes
 
 
 def run_stack(params, x, cfg: ArchConfig, *, positions):

@@ -56,6 +56,25 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
 
 
+# the logical axes of init_mamba's leaves (the second value of the JAX
+# package's ``init_mamba``)
+MAMBA_AXES = {
+    "wz": ("embed", "heads", "head_dim"),
+    "wx": ("embed", "heads", "head_dim"),
+    "wB": ("embed", None, "ssm_state"),
+    "wC": ("embed", None, "ssm_state"),
+    "wdt": ("embed", "dt"),
+    "dt_bias": ("dt",),
+    "A_log": ("dt",),
+    "D_skip": ("dt",),
+    "conv_x": ("conv", "heads", "head_dim"),
+    "conv_B": ("conv", None, "ssm_state"),
+    "conv_C": ("conv", None, "ssm_state"),
+    "norm": ("heads", "head_dim"),
+    "wo": ("heads", "head_dim", "embed"),
+}
+
+
 def _causal_depthwise_conv(x, kernel, tail=None):
     """x: (B, S, *ch); kernel: (w, *ch).  Causal depthwise conv along S.
 

@@ -648,7 +648,19 @@ def test_simulate_audit_exits_1_in_both_launchers(monkeypatch, capsys):
             if ln.startswith("[serve] AUDIT")] == audit
 
 
-def test_train_launcher_analyze_raises_on_a_bad_plan(capsys):
+def _synthetic_netprof_db(ns, path):
+    """A calibrated interconnect DB for ``cpu_host`` (the sweep's exact
+    α–β ground truth), written by package ``ns``."""
+    from importlib import import_module
+
+    db = ns.db.ProfileDB()
+    import_module(f"{ns.pkg}.netprof.sweep").synthetic_calibration(
+        db, "cpu_host")
+    db.save(str(path))
+    return str(path)
+
+
+def test_train_launcher_analyze_raises_on_a_bad_plan(capsys, tmp_path):
     from repro_torch.analysis import PlanVerificationError
     from repro_torch.launch import train as launcher
 
@@ -668,8 +680,19 @@ def test_train_launcher_analyze_raises_on_a_bad_plan(capsys):
                                         schedule="interleaved_1f1b"),
             micro_batch=1, seq=32,
             estimator=PORT.est.OpTimeEstimator(PORT.hw.CPU_HOST))
-    with pytest.raises(NotImplementedError, match="A14"):
-        launcher.main(base[:-1] + ["--netprof-db", "x.json"])
+    # --netprof-db: the plan is priced on the calibrated host, its
+    # collectives from the measured chain, at the analyze, plan and parity
+    # reports (the flag raised before the collective sweep was ported)
+    db = _synthetic_netprof_db(PORT, tmp_path / "netprof.json")
+    launcher.main(base + ["--batch", "8", "--ranks", "4", "--pp", "2",
+                          "--microbatches", "2", "--compression", "int8",
+                          "--netprof-db", db])
+    out = capsys.readouterr().out
+    assert f"[netprof] {db}: platform cpu_host" in out
+    assert "[analyze] plan:" in out and "0 errors" in out
+    assert "[netprof] ring-fallback nodes for profiled collectives: 0" in out
+    assert "[netprof] comm nodes ring-priced: 0" in out
+    assert "[netprof] all-reduce: 2 measured-fit" in out
 
 
 def test_analysis_cli_matches(tmp_path):
@@ -684,5 +707,13 @@ def test_analysis_cli_matches(tmp_path):
                      TRACE_PATH, "--serve-json", serve]) == 0
         docs.append((json.load(open(out)), json.load(open(serve))))
     assert _norm(docs[1]) == _norm(docs[0])
-    with pytest.raises(NotImplementedError, match="A14"):
-        tmain(["--netprof-db", "x.json"])
+    # --netprof-db (it raised before the collective sweep was ported): both
+    # CLIs price every plan through the same calibrated DB, identically
+    db = _synthetic_netprof_db(JAX, tmp_path / "netprof.json")
+    docs = []
+    for main, name in ((jmain, "jn"), (tmain, "tn")):
+        out = str(tmp_path / f"{name}.json")
+        assert main(["--json", out, "--seq", "64", "--netprof-db", db]) == 0
+        docs.append(json.load(open(out)))
+    assert _norm(docs[1]) == _norm(docs[0])
+    assert "A003" not in json.dumps(docs[1])

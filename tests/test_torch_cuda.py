@@ -742,3 +742,64 @@ def test_replay_span_covers_its_ops_device_time(dev, monkeypatch):
     assert counts["skipped"] == 0 and len(pairs) == 8
     for span, device_s in pairs:
         assert span >= device_s > 0
+
+
+def test_checkpoint_of_card_tensors_round_trips(dev, tmp_path):
+    """The async checkpointer's snapshot of tensors on the card is a
+    completed host copy (the step updates its tensors in place right
+    after), and restore places each leaf on its like-leaf's device and
+    dtype, bf16 included."""
+    from repro_torch.ckpt import AsyncCheckpointer, restore
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn(64, 32, generator=gen, device=dev)
+            .requires_grad_(),
+            "h": torch.randn(128, generator=gen, device=dev)
+            .to(torch.bfloat16),
+            "n": torch.tensor(5, dtype=torch.int32, device=dev)}
+    want = {k: v.detach().clone() for k, v in tree.items()}
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(tree, 5)
+    with torch.no_grad():
+        for v in tree.values():
+            v.add_(1)
+    ck.wait()
+    like = {k: torch.zeros_like(v) for k, v in tree.items()}
+    like["w"].requires_grad_()
+    restored, step = restore(like, str(tmp_path))
+    assert step == 5
+    for k, v in restored.items():
+        assert v.device == dev and v.dtype == want[k].dtype
+        assert torch.equal(v.detach(), want[k]), k
+    assert restored["w"].requires_grad
+    on_cpu, _ = restore({k: v.cpu() for k, v in want.items()},
+                        str(tmp_path))
+    assert all(v.device.type == "cpu" for v in on_cpu.values())
+
+
+def test_psum_scatter_and_the_sweep_on_card(dev):
+    """``psum_scatter`` over 4 logical ranks of the card equals the CPU
+    mesh's, and the sweep runs every kind there without a skip."""
+    from repro_torch.core.database import ProfileDB
+    from repro_torch.dist import mesh as M
+    from repro_torch.netprof.sweep import SweepConfig, sweep_collectives
+
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn(3, 16, generator=gen) for _ in range(4)]
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        mesh = M.make_mesh((2, 2), ("data", "model"), d)
+        vals = {c: xs[mesh.flat(c)].to(d) for c in mesh.coords()}
+        M.reset_traffic()
+        got[d.type] = mesh.psum_scatter(vals, "data")
+        assert M.TRAFFIC == {"psum_scatter": 4 * 3 * 16 * 4}
+    for c, t in got["cuda"].items():
+        assert t.device == dev and t.shape == (3, 8)
+        torch.testing.assert_close(t.cpu(), got["cpu"][c], rtol=1e-6,
+                                   atol=1e-6)
+    db = ProfileDB()
+    n = sweep_collectives(db, config=SweepConfig.smoke(), ranks=4,
+                          device=dev)
+    assert n == 5 * 3 * 3      # kinds x payloads x (x, dp, pp)
+    meta = db.meta("h100_sxm")["netprof"]
+    assert meta["backend"] == "cuda" and meta["ranks"] == 4

@@ -59,6 +59,10 @@ _NEW_MODULES = {
     "repro_torch.analysis.timeline_checks",
     "repro_torch.analysis.__main__", "repro_torch.obs.diff",
     "repro_torch.obs.overlay", "repro_torch.obs.replay",
+    "repro_torch.ckpt.checkpoint", "repro_torch.ft.elastic",
+    "repro_torch.ft.heartbeat", "repro_torch.ft.straggler",
+    "repro_torch.netprof.sweep", "repro_torch.netprof.report",
+    "repro_torch.netprof.calibrate",
 }
 
 _WALK = """

@@ -58,7 +58,7 @@ def test_launcher_pp_dp_int8_prints_plan_parity_comm(capsys):
     assert all(math.isfinite(x) for x in _losses(out))
 
 
-def test_launcher_interleaved_and_sharded_dp(capsys):
+def test_launcher_interleaved_and_sharded_dp(capsys, tmp_path):
     out = _run(capsys, "--batch", "8", "--ranks", "2", "--pp", "2",
                "--vstages", "2", "--microbatches", "4",
                "--pp-schedule", "interleaved_1f1b", "--overlap-buckets", "2")
@@ -70,8 +70,19 @@ def test_launcher_interleaved_and_sharded_dp(capsys):
     assert losses and all(math.isfinite(x) for x in losses)
     with pytest.raises(ValueError, match="divisible"):
         _run(capsys, "--batch", "8", "--ranks", "3", "--pp", "2")
-    with pytest.raises(NotImplementedError, match="ckpt"):
-        _run(capsys, "--ckpt-dir", "x")
+    # --ckpt-dir (it raised before the checkpointer was ported): the
+    # compressed dp step checkpoints its residuals and a second launch
+    # resumes from them
+    ck = str(tmp_path / "ck")
+    out = _run(capsys, "--batch", "8", "--ranks", "4", "--compression",
+               "int8", "--ckpt-dir", ck)
+    assert "[ckpt] step 3 written" in out and "[restore]" not in out
+    launcher.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                   "--steps", "4", "--seq", "32", "--batch", "8", "--ranks",
+                   "4", "--compression", "int8", "--ckpt-dir", ck])
+    out = capsys.readouterr().out
+    assert "[restore] resumed from step 3" in out
+    assert "[step     4]" in out and "[step     1]" not in out
 
 
 def test_one_rank_int8_step_follows_jax_compressed_step():
