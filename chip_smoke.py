@@ -14,6 +14,10 @@
                                            # checkpoint and resume
     python3 chip_smoke.py --only netprof   # kernels' checks, then the
                                            # collective sweep
+    python3 chip_smoke.py --only int8kv    # kernels' checks, then the
+                                           # int8 KV cache
+    python3 chip_smoke.py --only roofline  # kernels' checks, then the two
+                                           # simtrain rows and their roofline
 
 Phases, each printing one line of numbers:
 
@@ -224,7 +228,30 @@ Phases, each printing one line of numbers:
              every collective node priced from measurements.  The ranks
              share the card: the measurements are device-local copies, not
              NVLink times;
-35. a JSON line of every kernel at the serve and train shapes: launches on
+35. int8-kv — llama3.2-1b at full width and depth (random seeded weights,
+             fp32 masters cast once to bf16 as serving does) through the
+             non-paged ``Model.prefill`` of 1024 seeded tokens a row and 64
+             greedy decode steps, batch 8, a 2048-position cache, once with
+             the bf16 cache and once with ``kv_cache_dtype="int8"`` (fed the
+             bf16 run's tokens): the caches' bytes (536,870,912 and
+             276,824,064, exact), the int8 logits against the bf16 logits
+             at every step (limit 5 % of their scale, the JAX package's own
+             bound) and the greedy tokens that agree, the card's quantiser
+             against the CPU's on the k/v bits the prefill quantised (bit
+             for bit), 16 flash and 33 RMSNorm launches a forward; then
+             ``int8-kv-step``: a decode step at mid-run length with each
+             cache (A B B A), host and CUDA-event ms, busy ms and launches of
+             profiled steps, and the dequantising read of one layer alone
+             beside its eager traffic;
+36. roofline — the ``dense_llama`` and ``ssm_mamba2`` simtrain rows' traced
+             steps (phases 8 and 12, 2 x 2048) through the copy of
+             ``core/roofline.py`` at the H100 SXM: its row, the fraction at
+             the H100's peak beside the copy's v5e one (ROADMAP C17), the
+             measured step and busy time, the bound's share of the busy
+             time, the graph's contractions at their dtype's rate; the
+             terms finite and positive (collective 0 on one card) and the
+             model flops 6 N tokens gated;
+37. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -270,7 +297,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2e-2        # tests/test_kernels.py::tol for bfloat16
 FP32_TOL = 2e-5        # ... and for float32
 # bf16 attention: outputs over 1-2k keys are only ~0.03-0.05 here, so 2e-2
-# would pass a dropped tile; 4x the worst error measured on the H100 (1e-3)
+# would pass a dropped tile; 4x the worst error measured on the H100 (1e-3).
+# Held against the plain version's fp32 output (``attention_plain``)
 ATTN_BF16_TOL = 4e-3
 # SSD scan: the JAX kernel tests' tolerances (tests/test_kernels.py:101-102)
 SSD_BF16_TOL = 5e-2
@@ -396,7 +424,9 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                "ep-train": ((4, 2048, 2048, 64, 4, 128), torch.bfloat16,
                             ATTN_BF16_TOL, True),
                "ckpt-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
-                              ATTN_BF16_TOL, True)}
+                              ATTN_BF16_TOL, True),
+               "int8kv-prefill": ((8, 1024, 1024, 32, 8, 64), torch.bfloat16,
+                                  ATTN_BF16_TOL, True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -487,6 +517,18 @@ CKPT = dict(DENSE, steps=4, first=2, spread_factor=2.0)
 # the pp x dp plan reduces 749 MB a stage
 NETPROF = dict(ranks=4, dtypes=("float32", "bfloat16", "int8"), repeats=5,
                streams=2, payload_bytes=tuple(2**p for p in range(12, 29, 2)))
+# [int8-kv]: llama3.2-1b at full width and depth, non-paged prefill of 1024
+# seeded tokens a row and 64 decode steps, batch 8, a 2048-position cache,
+# bf16 and int8; the int8 logits within 5 % of the bf16 logits' scale (the
+# JAX package's own bound, tests/test_models_smoke.py); the decode step
+# timed over ``steps`` calls (half in each of the A B B A runs) and
+# profiled over ``profiled``
+INT8KV = dict(arch="llama3.2-1b", batch=8, prompt=1024, max_len=2048,
+              decode=64, seed=3, gap_tol=0.05, steps=20, profiled=5)
+# the caches' bytes by arithmetic: k and v, 16 layers, (8, 2048, 8, 64)
+# values; int8 adds a bf16 scale a (position, kv head)
+INT8KV_BYTES = {"bfloat16": 2 * 16 * 8 * 2048 * 8 * 64 * 2,
+                "int8": 2 * 16 * (8 * 2048 * 8 * 64 + 8 * 2048 * 8 * 2)}
 
 
 def phase(tag: str, **fields) -> None:
@@ -553,6 +595,20 @@ def device_ranges(prof) -> dict:
             for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and e.key.startswith(RANGES)}
+
+
+def attention_plain(q, k, v, **kw) -> torch.Tensor:
+    """The plain version (``attention_ref``) on the same inputs, its output
+    left in fp32: what a bf16 kernel output is held against (the rows also
+    give the kernel against the plain output rounded to the inputs' dtype,
+    ``max_abs_err_vs_plain_rounded``).  The kernel
+    rounds its fp32 result to bf16 once; the plain version's own bf16 output
+    is a second, independent rounding, and the two differ by a whole ulp
+    (0.0156 for |o| in [2, 4), where causal rows that see few keys lie)
+    wherever their fp32 values straddle a rounding boundary."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    return attention_ref(q.float(), k.float(), v.float(), **kw)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -701,7 +757,7 @@ def check_kernels(dev, gen, failures: list) -> None:
                       kv_len=None if kl is None else rows(kl))
             results.append((f"attention {label} {dtype}",
                             flash_attention(q, k, v, **kw),
-                            attention_ref(q, k, v, **kw), attn_tol,
+                            attention_plain(q, k, v, **kw), attn_tol,
                             f"attention {dt_name}"))
     # the SSD scan against its plain version evaluated in fp64 on the same
     # values: at the train shape y sums 256 terms of order 5, so the plain
@@ -726,7 +782,7 @@ def check_kernels(dev, gen, failures: list) -> None:
         dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
         results.append((f"attention train {label} {dtype}",
                         flash_attention(q, k, v, causal=causal),
-                        attention_ref(q, k, v, causal=causal), tol,
+                        attention_plain(q, k, v, causal=causal), tol,
                         f"attention {dt_name}"))
         del q, k, v
     b, s, _, h, kh, d = FLASH_TRAIN["dense-train"][0]
@@ -1288,11 +1344,12 @@ def kernel_table(dev, gen, ctx: dict, failures: list,
         qo = torch.tensor(offs, dtype=torch.int32, device=dev)
         kl = torch.full_like(qo, view)
         kw = dict(causal=True, q_offset=qo, kv_len=kl)
-        o, ref = flash_attention(q, k, v, **kw), attention_ref(q, k, v, **kw)
+        o, ref = flash_attention(q, k, v, **kw), attention_plain(q, k, v, **kw)
         err = max_err(o, ref)
         if not close(o, ref, ATTN_BF16_TOL):
             failures.append(f"flash_attention@{prefix}{phase_name}: max abs "
                             f"err {err:.3g} over tolerance {ATTN_BF16_TOL}")
+        err_bf16 = max_err(o, attention_ref(q, k, v, **kw))
         del o, ref
         ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
         call = call_ms(lambda: flash_attention(q, k, v, **kw))
@@ -1315,7 +1372,8 @@ def kernel_table(dev, gen, ctx: dict, failures: list,
             "launches_per_forward": per_forward("flash_attention"),
             "shape": f"q ({b}, {sq}, {h}, {hd}) vs k/v ({b}, {view}, {kh}, "
                      f"{hd}) bf16, q_offset {offs}",
-            "max_abs_err": err, "ms": ms, "call_ms": call,
+            "max_abs_err": err, "max_abs_err_vs_plain_rounded": err_bf16,
+            "ms": ms, "call_ms": call,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "library_ms": lib,
             "library": "torch.nn.functional.scaled_dot_product_attention",
@@ -1529,11 +1587,12 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
     k, v = (torch.randn(b, skv, kh, d, generator=gen, device=dev).to(dtype)
             for _ in range(2))
     o = flash_attention(q, k, v, causal=causal)
-    ref = attention_ref(q, k, v, causal=causal)
+    ref = attention_plain(q, k, v, causal=causal)
     err = max_err(o, ref)
     if not close(o, ref, tol):
         failures.append(f"flash_attention@{name}: max abs err {err:.3g} "
                         f"over tolerance {tol}")
+    err_bf16 = max_err(o, attention_ref(q, k, v, causal=causal))
     del o, ref
     ops_, nbytes = fa_cost(q, k, v, causal)
     bf16 = dtype == torch.bfloat16
@@ -1549,7 +1608,7 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
         "shape": f"q ({b}, {sq}, {h}, {d}) vs k/v ({b}, {skv}, {kh}, {d}) "
                  f"{'bf16' if bf16 else 'fp32'}, "
                  f"{'causal' if causal else 'non-causal'}, no masks",
-        "max_abs_err": err,
+        "max_abs_err": err, "max_abs_err_vs_plain_rounded": err_bf16,
         "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
         "call_ms": call_ms(lambda: flash_attention(q, k, v, causal=causal)),
         "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, causal=causal),
@@ -3576,6 +3635,352 @@ def netprof_phase(dev, failures: list) -> None:
                "their collectives device-local copies, not an NVLink time")
 
 
+# -- phases 35 and 36: the int8 KV cache, the roofline of the train steps -------
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def step_times(step, n: int) -> tuple:
+    """Host and CUDA-event milliseconds of each of ``n`` calls of ``step``
+    (which ends in a host readback)."""
+    host, events = [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        t0 = time.perf_counter()
+        step()
+        host.append(1e3 * (time.perf_counter() - t0))
+        ev[1].record()
+        ev[1].synchronize()
+        events.append(ev[0].elapsed_time(ev[1]))
+    return host, events
+
+
+def int8kv_phase(dev, failures: list) -> dict:
+    """``[int8-kv]``: llama3.2-1b at full width and depth through the
+    non-paged ``Model.prefill``/``decode`` (``INT8KV``), once with the
+    compute-dtype (bf16) cache and once with ``kv_cache_dtype="int8"`` on
+    the same weights: the caches' bytes (exact), the int8 run's logits
+    against the bf16 run's on the same tokens (it is fed the bf16 run's
+    greedy tokens), the card's quantiser against the CPU's on the k/v bits
+    the prefill quantised, the launches; then ``[int8-kv-step]``: one decode
+    step at mid-run length timed with each cache in the order A B B A, its
+    busy time and launches, and the dequantising read alone."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.hardware import platform_for_device
+    from repro_torch.models import build_model, compute_params, layers
+
+    d = INT8KV
+    base = get_config(d["arch"])
+    cfgs = {"bfloat16": base,
+            "int8": dataclasses.replace(base, kv_cache_dtype="int8")}
+    models = {k: build_model(c) for k, c in cfgs.items()}
+    params = compute_params(
+        models["bfloat16"].init(torch.Generator(device=dev).manual_seed(0)),
+        base)
+    rng = np.random.default_rng(d["seed"])
+    tokens = torch.as_tensor(rng.integers(
+        1, base.vocab_size, (d["batch"], d["prompt"]), dtype=np.int32),
+        device=dev)
+    quantize, seen = layers._kv_quantize, []
+
+    def recording(t):
+        seen.append(t)
+        return quantize(t)
+
+    forwards = 2 * (1 + d["decode"])
+    want = {"ssd_scan": 0, "flash_attention": forwards * base.num_layers,
+            "rmsnorm": forwards * (2 * base.num_layers + 1)}
+    counters = kernel_counters()
+    # this path's run: both caches' prefill and decode, counted from zero
+    for c in counters.values():
+        c.reset()
+    ref_logits, ref_tokens, runs, caches = [], [], {}, {}
+    with torch.inference_mode():
+        for name, model in models.items():
+            t0 = time.perf_counter()
+            with mock.patch.object(layers, "_kv_quantize", recording):
+                logits, cache = model.prefill(params, tokens, d["max_len"])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            if name == "bfloat16" and seen:
+                failures.append(f"int8-kv: the bf16 cache quantised "
+                                f"{len(seen)} tensors")
+            step_logits = [logits[:, -1].float()]
+            t0 = time.perf_counter()
+            for i in range(d["decode"]):
+                if name == "bfloat16":
+                    ref_tokens.append(torch.argmax(step_logits[-1], -1))
+                tok = ref_tokens[i][:, None].to(torch.int32)
+                logits, cache = model.decode(params, cache, tok,
+                                             d["prompt"] + i)
+                step_logits.append(logits[:, -1].float())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            if not all(bool(torch.isfinite(x).all()) for x in step_logits):
+                failures.append(f"int8-kv {name}: logits not finite")
+            if name == "bfloat16":
+                ref_logits = step_logits
+                gaps, agree = None, None
+            else:
+                gaps = [float((a - b).abs().max() / b.abs().max())
+                        for a, b in zip(step_logits, ref_logits)]
+                agree = sum(int((torch.argmax(a, -1) == t).sum())
+                            for a, t in zip(step_logits, ref_tokens))
+                agree /= len(ref_tokens) * d["batch"]
+            runs[name] = {"prefill_s": prefill_s, "decode_s": decode_s,
+                          "cache_bytes": cache_bytes(cache),
+                          "cache_dtypes": sorted({str(t.dtype).split(".")[-1]
+                                                  for t in cache.values()}),
+                          "logits_gap_by_step": gaps,
+                          "greedy_agreement": agree}
+            caches[name] = cache
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    if launches != want:
+        failures.append(f"int8-kv: launches {launches}, expected {want}")
+    for name, nbytes in INT8KV_BYTES.items():
+        if runs[name]["cache_bytes"] != nbytes:
+            failures.append(f"int8-kv {name}: cache {runs[name]['cache_bytes']}"
+                            f" bytes, expected {nbytes}")
+    gap = max(runs["int8"]["logits_gap_by_step"])
+    if not gap < d["gap_tol"]:
+        failures.append(f"int8-kv: logits gap {gap:.4g} of the bf16 logits' "
+                        f"scale, limit {d['gap_tol']}")
+
+    # the card's quantiser against the CPU's on the bits the prefill
+    # quantised: layer by layer, k then v
+    cache8, mism, elems = caches["int8"], 0, 0
+    if len(seen) != 2 * base.num_layers:
+        failures.append(f"int8-kv: {len(seen)} quantiser calls in the "
+                        f"prefill, expected {2 * base.num_layers}")
+    for i, t in enumerate(seen):
+        layer, name = divmod(i, 2)
+        name = "kv"[name]
+        q_cpu, s_cpu = quantize(t.cpu())
+        q = cache8[name][layer, :, :d["prompt"]].cpu()
+        s = cache8[f"{name}_scale"][layer, :, :d["prompt"]].cpu()
+        mism += int((q != q_cpu).sum()) + int((s != s_cpu).sum())
+        elems += q.numel() + s.numel()
+    if mism:
+        failures.append(f"int8-kv: {mism} of {elems} int8 values and scales "
+                        "differ between the card's quantiser and the CPU's")
+    del seen
+    phase("int8-kv", arch=base.name, layers=base.num_layers,
+          d_model=base.d_model, kv_heads=base.num_kv_heads,
+          head_dim=base.resolved_head_dim, batch=d["batch"],
+          prompt=d["prompt"], max_len=d["max_len"], decode=d["decode"],
+          cache_bytes={k: r["cache_bytes"] for k, r in runs.items()},
+          cache_bytes_expected=INT8KV_BYTES,
+          cache_ratio=runs["int8"]["cache_bytes"]
+          / runs["bfloat16"]["cache_bytes"],
+          logits_gap_max=gap, logits_gap_limit=d["gap_tol"],
+          quantiser={"calls": 2 * base.num_layers, "elements": elems,
+                     "mismatches": mism},
+          launches=launches, launches_expected=want, runs=runs)
+
+    # one decode step at mid-run length with each cache, A B B A
+    clen = d["prompt"] + d["decode"] // 2
+    tok = torch.ones((d["batch"], 1), dtype=torch.int32, device=dev)
+
+    def step_of(name):
+        def step():
+            with torch.inference_mode():
+                logits, _ = models[name].decode(params, caches[name], tok,
+                                                clen)
+                return torch.argmax(logits[:, -1], -1).cpu()
+        return step
+
+    steps = {k: step_of(k) for k in models}
+    timed = {k: {"host_ms": [], "event_ms": []} for k in models}
+    per_step = {}
+    for name in ("bfloat16", "int8", "int8", "bfloat16"):
+        for _ in range(3):
+            steps[name]()           # warm-up, outside the counts
+        before = {k: c.count for k, c in counters.items()}
+        host, events = step_times(steps[name], d["steps"] // 2)
+        per_step[name] = {k: (c.count - before[k]) / len(host)
+                          for k, c in counters.items()}
+        timed[name]["host_ms"] += host
+        timed[name]["event_ms"] += events
+    out = {}
+    for name, t in timed.items():
+        wall, wall_prof, busy, kernels = busy_and_wall(steps[name],
+                                                       d["profiled"])
+        out[name] = {
+            "host_ms_median": float(np.median(t["host_ms"])),
+            "host_ms_min": min(t["host_ms"]), "host_ms_max": max(t["host_ms"]),
+            "event_ms_median": float(np.median(t["event_ms"])),
+            "wall_ms": wall, "wall_ms_profiled": wall_prof,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "idle_share": 1.0 - busy / wall_prof if busy > 0 else None,
+            "kernel_launches_per_step": sum(e.count for e in kernels)
+            / d["profiled"],
+            "port_launches_per_step": per_step[name]}
+        if per_step[name] != {"ssd_scan": 0, "rmsnorm": 33.0,
+                              "flash_attention": 16.0}:
+            failures.append(f"int8-kv-step {name}: launches a step "
+                            f"{per_step[name]}")
+    # the dequantising read of one layer alone, and its eager traffic: the
+    # casts of the int8 values and the scales, and their product
+    lc8 = {k: v[0] for k, v in caches["int8"].items()}
+    n, ns = lc8["k"].numel(), lc8["k_scale"].numel()
+    read_bytes = 2 * (7 * n + 6 * ns)
+    with torch.inference_mode():
+        read_ms = cuda_ms(lambda: layers._cache_read(lc8, torch.bfloat16))
+    chip = platform_for_device(torch.cuda.get_device_name(dev)).chip
+    busy = [out[k]["device_busy_ms"] for k in ("int8", "bfloat16")]
+    phase("int8-kv-step", step="decode", batch=d["batch"], length=clen,
+          order="ABBA", steps_timed=d["steps"], profiled=d["profiled"],
+          caches=out,
+          dequant_read={"ms_per_layer": read_ms,
+                        "ms_per_step": read_ms * base.num_layers,
+                        "eager_bytes_per_layer": read_bytes,
+                        "eager_bound_ms_per_layer":
+                            1e3 * read_bytes / chip.hbm_bw,
+                        "fused_bytes_per_layer": 2 * (n + 2 * ns + 2 * n),
+                        "fused_bound_ms_per_layer":
+                            1e3 * 2 * (3 * n + 2 * ns) / chip.hbm_bw},
+          busy_ms_int8_minus_bf16=(
+              busy[0] - busy[1] if all(isinstance(x, float) for x in busy)
+              else "not measured"))
+    return {"launches": launches, "forwards": forwards, "cfg": base}
+
+
+def int8kv_kernel_table(dev, gen, platform, ctx, failures: list) -> list:
+    """RMSNorm and flash attention at the [int8-kv] path's shapes: the
+    decode step (x (8, 1, 2048); q (8, 1, 32, 64) against the whole
+    non-paged cache, (8, 2048, 8, 64) bf16, at the mid-run length) and the
+    prefill (x (8, 1024, 2048); ``FLASH_TRAIN["int8kv-prefill"]``);
+    launches from that run (None where it was not driven)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.ops import cost as fa_cost
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, launch_plan, sm_count,
+    )
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask, attention_ref,
+    )
+
+    d, chip = INT8KV, platform.chip
+    cfg = get_config(d["arch"])
+    b, dm, h, kh, hd = (d["batch"], cfg.d_model, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.resolved_head_dim)
+    launches = ctx["launches"] if ctx else None
+
+    def counts(kernel):
+        return ((None, None) if launches is None
+                else (launches[kernel], launches[kernel] / ctx["forwards"]))
+
+    rows = [rmsnorm_row(dev, gen, chip, f"rmsnorm@int8kv-{tag}", (b, sq, dm),
+                        cfg.norm_eps, *counts("rmsnorm"), failures)
+            for tag, sq in (("decode", 1), ("prefill", d["prompt"]))]
+    rows.append(flash_train_row(dev, gen, chip, "int8kv-prefill",
+                                *counts("flash_attention"), failures))
+    for row in rows:
+        row["launches_per_forward"] = row.pop("launches_per_step")
+
+    # the decode step: one query a row at the mid-run length, as
+    # ``attention_decode`` calls it (causal over absolute positions)
+    skv, offs = d["max_len"], [d["prompt"] + d["decode"] // 2] * b
+    q = torch.randn(b, 1, h, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(b, skv, kh, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    qo = torch.tensor(offs, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=qo)
+    o, ref = flash_attention(q, k, v, **kw), attention_plain(q, k, v, **kw)
+    err = max_err(o, ref)
+    if not close(o, ref, ATTN_BF16_TOL):
+        failures.append(f"flash_attention@int8kv-decode: max abs err "
+                        f"{err:.3g} over tolerance {ATTN_BF16_TOL}")
+    err_bf16 = max_err(o, attention_ref(q, k, v, **kw))
+    del o, ref
+    ops_, nbytes = fa_cost(q, k, v, True, qo)
+    bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = attention_mask(b, 1, skv, causal=True, q_offset=qo, kv_len=None,
+                          device=dev)[:, None]
+    plan = launch_plan(b, 1, skv, h, kh, hd, sm_count(dev.index))
+    n_l, per_fwd = counts("flash_attention")
+    rows.insert(2, {
+        "name": "flash_attention@int8kv-decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:127",
+        "launches": n_l, "launches_per_forward": per_fwd,
+        "shape": f"q ({b}, 1, {h}, {hd}) vs k/v ({b}, {skv}, {kh}, {hd}) "
+                 f"bf16, causal, q_offset {offs}",
+        "max_abs_err": err, "max_abs_err_vs_plain_rounded": err_bf16,
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, **kw)),
+        "call_ms": call_ms(lambda: flash_attention(q, k, v, **kw)),
+        "plain_ms": cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=5),
+        "bound_ms": bms, "bound_by": by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)),
+        "library": "torch.nn.functional.scaled_dot_product_attention",
+        "plan": {"keys_mode": plan.split_keys, "row_tiles": plan.row_tiles,
+                 "splits": plan.splits,
+                 "grid": [plan.row_tiles, b * kh, plan.splits],
+                 "combine": plan.splits > 1}})
+    return rows
+
+
+def roofline_phase(rows: list, failures: list) -> None:
+    """``[roofline]``: the Table-2 rows' traced train steps (``rows``: (cfg,
+    simtrain row) pairs, one microbatch of 2 x 2048) through the port's
+    copy of ``core/roofline.py`` at the H100 SXM: its row, and beside it the
+    fraction at the H100's peak (the copy divides by the TPU v5e peak, ROADMAP
+    C17), the row's measured step and busy time, the bound's share of the
+    busy time, and the graph's contractions priced at their dtype's rate
+    (bf16 on the tensor cores; fp32 at the CUDA cores' rate, TF32 off).
+    Gated: compute and memory terms finite and positive, the collective term
+    finite and not negative (one card), the model flops 6 N tokens."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.roofline import build_report, to_row
+
+    peak = H100_SXM.chip.peak_flops
+    for cfg, row in rows:
+        shape = ShapeConfig("simtrain", row["seq"], row["batch"], "train")
+        summary = {"flops": row["graph_flops"], "bytes": row["graph_bytes"]}
+        r = build_report(cfg, shape, "single", 1, summary, platform=H100_SXM)
+        mf = 6.0 * cfg.active_params() * shape.global_batch * shape.seq_len
+        if not (all(math.isfinite(t) and t > 0
+                    for t in (r.compute_s, r.memory_s))
+                and math.isfinite(r.collective_s) and r.collective_s >= 0):
+            failures.append(f"roofline {row['name']}: terms {r.compute_s}, "
+                            f"{r.memory_s}, {r.collective_s}")
+        if r.model_flops_global != mf:
+            failures.append(f"roofline {row['name']}: model flops "
+                            f"{r.model_flops_global}, expected {mf}")
+        dots = row["dot_flops_by_dtype"]
+        dot_s = sum(f / (peak if dt in ("bfloat16", "float16")
+                         else FP32_FLOPS) for dt, f in dots.items())
+        busy = row["busy_s"]
+        phase("roofline", row=row["name"], platform=H100_SXM.name,
+              **to_row(r),
+              roofline_fraction_h100=(r.model_flops_global / r.chips / peak)
+              / r.bound_time_s,
+              model_flops_at_peak_s=r.model_flops_global / peak,
+              measured_s=row["measured_s"],
+              measured_min_s=row["measured_min_s"],
+              measured_max_s=row["measured_max_s"], busy_s=busy,
+              bound_share_of_busy=r.bound_time_s / busy if busy else None,
+              dot_flops_by_dtype=dots, dot_s_at_dtype_rates=dot_s,
+              dot_share_of_busy=dot_s / busy if busy else None,
+              note="roofline_fraction: the copy's, at the TPU v5e peak "
+                   "(ROADMAP C17); roofline_fraction_h100 at 989 TFLOP/s")
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -3603,15 +4008,17 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
-                                       "netprof"),
+                                       "netprof", "int8kv", "roofline"),
                     help="kernels: build, check and time the kernels alone "
                          "(no serve or train run, no launch counts); pp, ep, "
-                         "obs, ckpt or netprof: build and check the kernels, "
-                         "then that slice's phases alone (remat-dots, pp-*, "
-                         "autotune; ep-*; serve-shard, serve-obs, "
-                         "serve-analyze and pp-train with pp-analyze and "
-                         "pp-obs; ckpt and ft; netprof; the layer profile "
-                         "into a fresh ProfileDB).  None prints the ok line")
+                         "obs, ckpt, netprof, int8kv or roofline: build and "
+                         "check the kernels, then that slice's phases alone "
+                         "(remat-dots, pp-*, autotune; ep-*; serve-shard, "
+                         "serve-obs, serve-analyze and pp-train with "
+                         "pp-analyze and pp-obs; ckpt and ft; netprof; "
+                         "int8-kv and int8-kv-step; the two simtrain rows "
+                         "and their roofline; the layer profile into a fresh "
+                         "ProfileDB).  None prints the ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
@@ -3682,6 +4089,30 @@ def main() -> int:
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
+    if args.only in ("int8kv", "roofline"):
+        from repro_torch.configs.base import get_config
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        table = []
+        if args.only == "int8kv":
+            ictx = int8kv_phase(dev, failures)
+            torch.cuda.empty_cache()
+            table = int8kv_kernel_table(dev, gen, platform, ictx, failures)
+        else:
+            rows = []
+            for arch, batch in ((TRAIN_ARCH, SIMTRAIN["batch"]),
+                                (DENSE_ARCH,
+                                 DENSE["batch"] // DENSE["grad_accum"])):
+                cfg = get_config(arch)
+                rows.append((cfg, simtrain_phase(dev, cfg, SIMTRAIN["seq"],
+                                                 batch, failures)))
+                torch.cuda.empty_cache()
+            roofline_phase(rows, failures)
+        print(json.dumps({"kernels": table}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
     if args.only in ("pp", "ep"):
         from repro_torch.core.database import ProfileDB
         from repro_torch.core.hardware import platform_for_device
@@ -3712,7 +4143,9 @@ def main() -> int:
     cfg, platform = tctx["cfg"], tctx["platform"]
     del tctx
     torch.cuda.empty_cache()
-    simtrain_phase(dev, cfg, SIMTRAIN["seq"], SIMTRAIN["batch"], failures)
+    ssm_row = simtrain_phase(dev, cfg, SIMTRAIN["seq"], SIMTRAIN["batch"],
+                             failures)
+    ssm_cfg = cfg
 
     dctx = train_phase(dev, failures, get_config(DENSE_ARCH), DENSE,
                        "dense-train")
@@ -3729,9 +4162,11 @@ def main() -> int:
     from repro_torch.core.database import ProfileDB
 
     dense_db = ProfileDB()      # the card's profiles, kept for [pp-plan]
-    simtrain_phase(dev, dense_cfg, DENSE["seq"],
-                   DENSE["batch"] // DENSE["grad_accum"], failures,
-                   db=dense_db)
+    dense_row = simtrain_phase(dev, dense_cfg, DENSE["seq"],
+                               DENSE["batch"] // DENSE["grad_accum"],
+                               failures, db=dense_db)
+    # this slice: the roofline of the two traced steps
+    roofline_phase([(ssm_cfg, ssm_row), (dense_cfg, dense_row)], failures)
     simtrain_phase(dev, smoke_config(MOE_ARCH), MOE["seq"], MOE["batch"],
                    failures)
 
@@ -3775,6 +4210,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     table += ckpt_kernel_table(dev, gen, platform, launches, failures)
     netprof_phase(dev, failures)
+    torch.cuda.empty_cache()
+    # this slice: the int8 KV cache
+    ictx = int8kv_phase(dev, failures)
+    torch.cuda.empty_cache()
+    table += int8kv_kernel_table(dev, gen, platform, ictx, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

@@ -140,6 +140,18 @@ def busy_seconds(events) -> float:
     return busy / 1e6
 
 
+def dot_flops_by_dtype(graph) -> dict:
+    """The graph's contraction flops by operand dtype (the rate a card
+    runs each at differs: bf16 on the tensor cores, fp32 without TF32 on
+    the CUDA cores)."""
+    out: dict[str, float] = {}
+    for n in graph.nodes:
+        if n.kind == "dot":
+            dt = n.meta["dot"]["dtype"]
+            out[dt] = out.get(dt, 0.0) + n.flops
+    return out
+
+
 def run(cfg, *, seq: int, batch: int, steps: int = 12,
         profile_repeats: int = 5, device="cuda", log_fn=print,
         db=None) -> dict:
@@ -283,7 +295,10 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
                                       if n.meta.get("kernel") == k)
                                for k in KERNEL_COSTS},
         "kernel_launches_per_step": launches,
-        "dot_flops": summary["dot_flops"], "seconds": seconds,
+        "dot_flops": summary["dot_flops"],
+        "dot_flops_by_dtype": dot_flops_by_dtype(graph),
+        "graph_flops": summary["flops"], "graph_bytes": summary["bytes"],
+        "seconds": seconds,
     }
     log_fn(
         f"{row['name']},{measured * 1e6:.2f},"

@@ -1,6 +1,6 @@
 """Shared model substrate: norms, RoPE, GQA attention (causal, bidirectional
-and cross, full-sequence, and with a bf16 KV cache), the SwiGLU MLP,
-embedding, head and cross-entropy.
+and cross, full-sequence, and with a compute-dtype or int8 KV cache), the
+SwiGLU MLP, embedding, head and cross-entropy.
 
 Parameters are plain dicts of tensors with the JAX package's keys and shapes
 (``repro.models.layers``), so a parameter tree crosses between the two
@@ -229,10 +229,9 @@ def _sdpa(q, k, v, cfg, *, q_offset: Optional[torch.Tensor] = None,
     Returns (B,Sq,H,hd).
     """
     if cfg.attn_impl == "proxy":
-        raise NotImplementedError(
-            "attn_impl='proxy' is a dry-run measurement stub of the JAX "
-            "package; the port has no dry run"
-        )
+        # the JAX package's dry-run stub: zero-traffic attention of the same
+        # output shape (no kernel runs)
+        return q * (1.0 / math.sqrt(q.shape[-1]))
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len)
 
@@ -286,11 +285,18 @@ def causal_mask(sq: int, skv: int, offset: int = 0, device=None):
 
 
 def init_kv_cache(batch: int, max_len: int, cfg, dtype, device) -> dict:
-    if getattr(cfg, "kv_cache_dtype", "bfloat16") == "int8":
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP, int8 KV cache)"
-        )
+    """One layer's KV cache: k/v (B, S, K, hd) in ``dtype``, or for
+    ``cfg.kv_cache_dtype == "int8"`` int8 k/v with (B, S, K, 1) bf16
+    per-position scales ``k_scale``/``v_scale``."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if getattr(cfg, "kv_cache_dtype", "bfloat16") == "int8":
+        scale = (batch, max_len, cfg.num_kv_heads, 1)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
+            "v_scale": torch.zeros(scale, dtype=torch.bfloat16, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype_of(dtype), device=device),
         "v": torch.zeros(shape, dtype=dtype_of(dtype), device=device),
@@ -304,17 +310,49 @@ KV_CACHE_AXES = {
 
 
 def kv_cache_axes(cfg) -> dict:
-    """The logical axes of one layer's KV cache (the port has only the
-    bf16/fp32 cache, so no scale entries)."""
-    return dict(KV_CACHE_AXES)
+    """The logical axes of one layer's KV cache, the scales' included for
+    an int8 cache."""
+    axes = dict(KV_CACHE_AXES)
+    if getattr(cfg, "kv_cache_dtype", "bfloat16") == "int8":
+        axes["k_scale"] = ("batch", "kv_seq", "kv_heads", None)
+        axes["v_scale"] = ("batch", "kv_seq", "kv_heads", None)
+    return axes
+
+
+def _kv_quantize(t: torch.Tensor) -> tuple:
+    """(B,S,K,hd) -> (int8 values, (B,S,K,1) bf16 scales), as the JAX
+    package's: a per-position scale amax/127 (at least 1e-8), values
+    rounded half to even and clipped to +-127, the scale cast to bf16 after
+    the division.  Both divisions are true fp32 divisions on every device:
+    PyTorch's CUDA kernel turns a division by a host scalar into a product
+    with its reciprocal, so 127 is a tensor on ``t``'s device."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-8)
+    q = torch.clamp(torch.round(tf / scale), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
 
 
 def _cache_write(cache, k, v, pos: int) -> None:
     """Write k/v (B,S,K,hd) into the cache at sequence offset ``pos``, in
-    place (the JAX version returns an updated copy)."""
+    place (the JAX version returns an updated copy); an int8 cache takes
+    the quantised values and their scales."""
     s = k.shape[1]
+    if "k_scale" in cache:
+        (k, k_scale), (v, v_scale) = _kv_quantize(k), _kv_quantize(v)
+        cache["k_scale"][:, pos:pos + s] = k_scale
+        cache["v_scale"][:, pos:pos + s] = v_scale
     cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
     cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
+
+
+def _cache_read(cache, cdt) -> tuple:
+    """(k, v) in the compute dtype; an int8 cache dequantised, the product
+    formed in ``cdt`` as the JAX package forms it."""
+    if "k_scale" in cache:
+        return (cache["k"].to(cdt) * cache["k_scale"].to(cdt),
+                cache["v"].to(cdt) * cache["v_scale"].to(cdt))
+    return cache["k"].to(cdt), cache["v"].to(cdt)
 
 
 def attention_prefill(p, x, cfg, *, positions, cache):
@@ -331,7 +369,8 @@ def attention_decode(p, x, cfg, *, cache, cache_len: int):
     """One-token decode: x (B,1,D), attend over cache[0:cache_len] + self.
 
     The new token's k/v are written at position ``cache_len`` (in place);
-    the mask hides positions > cache_len.
+    the attention reads the whole cache through :func:`_cache_read` (an int8
+    cache dequantised) and the mask hides positions > cache_len.
     """
     b = x.shape[0]
     positions = torch.full((b, 1), cache_len, dtype=torch.int32,
@@ -339,8 +378,8 @@ def attention_decode(p, x, cfg, *, cache, cache_len: int):
     cdt = dtype_of(cfg.compute_dtype)
     q, k, v = _project_qkv(p, x, cfg, positions)
     _cache_write(cache, k, v, cache_len)
-    out = _sdpa(q, cache["k"].to(cdt), cache["v"].to(cdt), cfg,
-                q_offset=positions[:, 0])
+    ck, cv = _cache_read(cache, cdt)
+    out = _sdpa(q, ck, cv, cfg, q_offset=positions[:, 0])
     y = proj(out, p["wo"].to(cdt), 2)
     return y, cache
 

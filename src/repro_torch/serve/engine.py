@@ -31,8 +31,8 @@ lanes (``serve.paged.decode_slot_sharded``; the same tensors for ranks that
 share a card, a copy for a rank on another), prefill replicated.  The step
 log, the scheduler and the twins do not change.
 
-Not ported: ``splice_cache`` (the JAX package's whole-cache helper, which
-its engine does not call).
+:func:`splice_cache` is the JAX package's whole-cache helper for the
+non-paged path; neither engine calls it.
 """
 from __future__ import annotations
 
@@ -338,3 +338,41 @@ class ServeEngine:
                     f"finished)"
                 )
         return self.finished
+
+
+# -- cache splicing helpers ----------------------------------------------------
+
+
+def _batch_axis(full, one) -> int:
+    """First axis where the shapes differ (slots vs 1: the batch axis)."""
+    for i, (f, o) in enumerate(zip(full.shape, one.shape)):
+        if o != f:
+            return i
+    return 0
+
+
+def splice_cache(full, one, slot: int):
+    """Functional helper: write sequence-0 of ``one`` into slot ``slot`` of
+    ``full`` (non-paged whole-cache path), leaf by leaf over dicts, lists
+    and tuples; returns new tensors and leaves ``full`` unchanged.  As
+    ``jax.lax.dynamic_update_slice``: ``one``'s leaf is written whole, cast
+    to ``full``'s dtype, at ``slot`` along the batch axis and 0 along the
+    others, each start clamped so that the leaf fits."""
+
+    def leaf(f, o):
+        ax = _batch_axis(f, o)
+        at = [slice(0, n) for n in o.shape]
+        start = min(max(slot, 0), f.shape[ax] - o.shape[ax])
+        at[ax] = slice(start, start + o.shape[ax])
+        out = f.clone()
+        out[tuple(at)] = o.to(f.dtype)
+        return out
+
+    def walk(f, o):
+        if isinstance(f, dict):
+            return {k: walk(f[k], o[k]) for k in f}
+        if isinstance(f, (list, tuple)):
+            return type(f)(walk(a, b) for a, b in zip(f, o))
+        return leaf(f, o)
+
+    return walk(full, one)

@@ -803,3 +803,67 @@ def test_psum_scatter_and_the_sweep_on_card(dev):
     assert n == 5 * 3 * 3      # kinds x payloads x (x, dp, pp)
     meta = db.meta("h100_sxm")["netprof"]
     assert meta["backend"] == "cuda" and meta["ranks"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quantize_on_card_equals_cpu_bit_for_bit(dev, dtype):
+    """The int8 cache's quantiser on the card gives the CPU's int8 values
+    and bf16 scales bit for bit (true divisions on both: no reciprocal),
+    over magnitudes e^-12 .. e^12, an all-zero row and exact ties."""
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 64, 8, 64))
+    x *= np.exp(rng.uniform(-12.0, 12.0, (8, 64, 8, 1)))
+    x = x.astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[1, 1, 1] = np.resize(np.array([127.0, 0.5, 1.5, 2.5, -0.5, -2.5],
+                                    np.float32), 64)
+    # amax / 127 an ulp off amax * fl(1/127), and an element whose quotient
+    # is 1.4999999 by the one and 1.5 by the other: PyTorch's CUDA kernel
+    # multiplies by the reciprocal of a host scalar divisor
+    x[2, 2, 2] = 0.0
+    x[2, 2, 2, :2] = (1.8894879, 0.022316786)
+    t = torch.from_numpy(x).to(dtype)
+    q_cpu, s_cpu = layers._kv_quantize(t)
+    q, s = layers._kv_quantize(t.to(dev))
+    assert q.device.type == "cuda"
+    assert torch.equal(q.cpu(), q_cpu)
+    assert torch.equal(s.cpu(), s_cpu)
+    if dtype == torch.float32:
+        assert int(q_cpu[2, 2, 2, 1]) == 1
+
+
+def test_int8_decode_on_card_matches_cpu_decode(dev):
+    """The smoke llama3.2-1b with ``kv_cache_dtype="int8"`` (fp32 compute):
+    prefill and four greedy decode steps on the card through the kernels
+    against the same on the CPU through the plain versions, within the
+    bf16 tolerance (a value on a rounding tie may quantise to its
+    neighbour on one device); the int8 leaves agree but for such ties."""
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(smoke_variant(get_config("llama3.2-1b")),
+                              num_layers=2, kv_cache_dtype="int8")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    dparams = tree_map(lambda t: t.to(dev), params)
+    tokens = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 21),
+                                               dtype=np.int32)
+    with torch.inference_mode():
+        lc, cc = model.prefill(params, torch.from_numpy(tokens), 32)
+        ld, cd = model.prefill(dparams, torch.from_numpy(tokens).to(dev), 32)
+        for k in ("k", "v"):
+            diff = (cd[k].cpu().int() - cc[k].int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) \
+                < 1e-3, k
+        torch.testing.assert_close(ld.cpu(), lc, rtol=2e-2, atol=2e-2)
+        clen = tokens.shape[1]
+        for _ in range(4):
+            tok = torch.argmax(lc[:, -1], -1)[:, None].to(torch.int32)
+            lc, cc = model.decode(params, cc, tok, clen)
+            ld, cd = model.decode(dparams, cd, tok.to(dev), clen)
+            torch.testing.assert_close(ld.cpu(), lc, rtol=2e-2, atol=2e-2)
+            clen += 1
+    assert cd["k"].dtype == torch.int8 and cd["k_scale"].device.type == "cuda"

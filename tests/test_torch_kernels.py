@@ -170,10 +170,18 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 def test_proxy_attention_is_not_ported():
+    """The dry run's zero-traffic attention stub, ported with the int8 KV
+    cache (the test keeps its name): JAX ``_sdpa``'s output, q / sqrt(hd),
+    without a call of the flash op (which refuses the meta tensors)."""
     cfg = dataclasses.replace(CFG, attn_impl="proxy")
-    q = torch.zeros((1, 2, 4, 32))
-    with pytest.raises(NotImplementedError):
-        TL._sdpa(q, q, q, cfg)
+    q = np.random.default_rng(0).standard_normal((1, 2, 4, 32)
+                                                 ).astype(np.float32)
+    want = JL._sdpa(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q), None, cfg)
+    got = TL._sdpa(torch.from_numpy(q), torch.from_numpy(q),
+                   torch.from_numpy(q), cfg)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    meta = torch.empty((1, 2, 4, 32), device="meta")
+    assert TL._sdpa(meta, meta, meta, cfg).shape == meta.shape
 
 
 def test_build_names_sources_and_needs_nvcc(monkeypatch, tmp_path):
