@@ -18,6 +18,8 @@
                                            # int8 KV cache
     python3 chip_smoke.py --only roofline  # kernels' checks, then the two
                                            # simtrain rows and their roofline
+    python3 chip_smoke.py --only dryrun    # kernels' checks, then the dry
+                                           # run's cells and its check
 
 Phases, each printing one line of numbers:
 
@@ -251,7 +253,27 @@ Phases, each printing one line of numbers:
              time, the graph's contractions at their dtype's rate; the
              terms finite and positive (collective 0 on one card) and the
              model flops 6 N tokens gated;
-37. a JSON line of every kernel at the serve and train shapes: launches on
+37. dryrun — the port's dry run (``launch/dryrun.py``) at full configs on the
+             production (16, 16) mesh, each cell's rank program traced on
+             fake CUDA tensors in a process of its own (the card visible,
+             nothing allocated on it), all started together: llama3.2-1b train_4k, prefill_32k and
+             decode_32k, phi4-mini-3.8b train_4k baseline and ``seqpar``,
+             qwen3-moe prefill_32k (FSDP, experts); per cell the status,
+             a rank's argument and temp bytes, flops, ICI/DCN collective
+             bytes, the roofline row at the H100 SXM with the fraction at
+             its peak, the drops and the seconds; gated: status ``ok``,
+             the arguments equal to the shard bytes recomputed here, every
+             term finite and not negative;
+38. dryrun-check — the dry run against the card on a 1-rank mesh, at
+             llama3.2-1b's full width: the train cell of phase 9 (seq
+             2048, batch 8, grad_accum 4) and the bf16 decode cell of phase
+             35 (batch 8, 2048 positions); the predicted arguments against
+             the allocated state, batch, weights, cache and token, byte for
+             byte (and the int8 cache's), the traced graph's kernel nodes
+             against the launches of one real step (the path: counts from
+             zero before it), and the predicted peak (arguments + traced
+             temp) beside ``max_memory_allocated`` of that step (not gated);
+39. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -426,7 +448,9 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                "ckpt-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                               ATTN_BF16_TOL, True),
                "int8kv-prefill": ((8, 1024, 1024, 32, 8, 64), torch.bfloat16,
-                                  ATTN_BF16_TOL, True)}
+                                  ATTN_BF16_TOL, True),
+               "dryrun-check-train": ((2, 2048, 2048, 32, 8, 64),
+                                      torch.bfloat16, ATTN_BF16_TOL, True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -3981,6 +4005,361 @@ def roofline_phase(rows: list, failures: list) -> None:
                    "(ROADMAP C17); roofline_fraction_h100 at 989 TFLOP/s")
 
 
+# [dryrun]: cells of the port's dry run at full configs on the production
+# (16, 16) mesh, as (arch, shape, hillclimb variant); each traced in its own
+# process, all started together, with the card visible (a train cell's
+# autograd asks the runtime for its context) and nothing allocated on it.  qwen3-moe's train_4k
+# (94 layers x 8 microbatches) traces for minutes: its prefill stands in for
+# the FSDP and expert path here, the tier-1 tests cover its train specs
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "baseline"),
+                ("llama3.2-1b", "prefill_32k", "baseline"),
+                ("llama3.2-1b", "decode_32k", "baseline"),
+                ("phi4-mini-3.8b", "train_4k", "baseline"),
+                ("phi4-mini-3.8b", "train_4k", "seqpar"),
+                ("qwen3-moe-235b-a22b", "prefill_32k", "baseline"))
+# [dryrun-check]: the 1-rank cells held against the card, (name, seq,
+# batch, kind): the dense train cell (DENSE) and the bf16 decode cell of
+# [int8-kv] (a 2048-position cache, batch 8)
+DRYRUN_CHECK = {"train": ("dryrun_check_train", DENSE["seq"], DENSE["batch"],
+                          "train"),
+                "decode": ("dryrun_check_decode", INT8KV["max_len"],
+                           INT8KV["batch"], "decode")}
+DRYRUN_TIMEOUT = 600
+
+
+def dryrun_worker(spec: dict) -> int:
+    """One cell of the dry run, in a child process (``--dryrun-cell``):
+    ``run_cell`` at the spec's arch, shape (or a 1-rank mesh and a custom
+    shape) and hillclimb variant, the record written under ``out``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hillclimb import CELLS
+
+    cfg = get_config(spec["arch"])
+    if spec.get("kv_cache_dtype"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype=spec["kv_cache_dtype"])
+    variant = spec["variant"]
+    if variant != "baseline":
+        cfg = next(t for c in CELLS.values() if c[0] == spec["arch"]
+                   for v, _, t in c[2] if v == variant)(cfg)
+    mesh = shape = None
+    if spec.get("one_rank"):
+        mesh = Mesh(("data", "model"), (1, 1), (torch.device("meta"),))
+        shape = ShapeConfig(*spec["shape"])
+    rec = D.run_cell(spec["arch"], shape.name if shape else spec["shape"],
+                     "one" if mesh else "single", spec["out"], cfg=cfg,
+                     tag="" if variant == "baseline" else variant,
+                     device=spec.get("device", "cuda"), mesh=mesh,
+                     shape=shape)
+    print(json.dumps({"status": rec["status"]}), flush=True)
+    return 0 if rec["status"] in ("ok", "skipped") else 1
+
+
+def start_dryrun(out: str) -> list:
+    """Start every [dryrun] and [dryrun-check] cell in a process of its own
+    (the dry run allocates nothing on the card); returns (key, spec,
+    process, log path)."""
+    specs = [(f"{a}|{s}|{v}", {"arch": a, "shape": s, "variant": v})
+             for a, s, v in DRYRUN_CELLS]
+    for kind, shape in DRYRUN_CHECK.items():
+        specs.append((f"check|{kind}", {"arch": DENSE_ARCH, "shape": shape,
+                                        "variant": "baseline",
+                                        "one_rank": True}))
+    # the card stays visible: autograd on fake CUDA tensors asks the
+    # runtime for the device's context (a trace with no device visible
+    # fails there); nothing is allocated on it
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    started = []
+    for key, spec in specs:
+        spec["out"] = out
+        log = os.path.join(out, key.replace("|", "__") + ".log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dryrun-cell",
+                 json.dumps(spec)], stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=ROOT)
+        started.append((key, spec, proc, log))
+    return started
+
+
+def finish_dryrun(started: list, failures: list) -> dict:
+    """Wait for every dry-run process (killing any past the limit) and read
+    its record; returns {key: record or None}."""
+    t_end = time.time() + DRYRUN_TIMEOUT
+    recs = {}
+    for key, spec, proc, log in started:
+        try:
+            proc.wait(timeout=max(1.0, t_end - time.time()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            failures.append(f"dryrun {key}: no record in {DRYRUN_TIMEOUT} s")
+            recs[key] = None
+            continue
+        shape = spec["shape"]
+        name = shape[0] if isinstance(shape, (list, tuple)) else shape
+        mesh = "one" if spec.get("one_rank") else "single"
+        tag = "" if spec["variant"] == "baseline" else f"__{spec['variant']}"
+        path = os.path.join(spec["out"],
+                            f"{spec['arch']}__{name}__{mesh}{tag}.json")
+        if not os.path.exists(path):
+            with open(log) as f:
+                tail = f.read()[-1500:]
+            failures.append(f"dryrun {key}: rc {proc.returncode}, no record: "
+                            f"{tail}")
+            recs[key] = None
+            continue
+        with open(path) as f:
+            recs[key] = json.load(f)
+    return recs
+
+
+def _finite(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x >= 0
+
+
+def dryrun_phase(recs: dict, failures: list) -> None:
+    """``[dryrun]``: each production cell's record (see DRYRUN_CELLS),
+    gated on its status, its arguments against the shard bytes of the
+    specs recomputed in this process, and every term finite."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.hillclimb import CELLS
+
+    for a, s, v in DRYRUN_CELLS:
+        rec = recs.get(f"{a}|{s}|{v}")
+        if rec is None:
+            continue
+        if rec["status"] != "ok":
+            failures.append(f"dryrun {a} {s} {v}: {rec['status']} "
+                            f"{rec.get('error', '')}")
+            phase("dryrun", arch=a, shape=s, variant=v, status=rec["status"],
+                  error=rec.get("error"),
+                  traceback=rec.get("traceback", "")[-1500:])
+            continue
+        cfg = get_config(a)
+        if v != "baseline":
+            cfg = next(t for c in CELLS.values() if c[0] == a
+                       for n, _, t in c[2] if n == v)(cfg)
+        _, shapes, in_specs, _, ctx, _ = D.build_cell(a, s, False, cfg=cfg)
+        args = D.shard_bytes(shapes, in_specs, ctx.mesh.sizes)
+        mem, summ, row = rec["memory"], rec["summary"], rec["roofline"]
+        if mem["argument_size_in_bytes"] != args:
+            failures.append(f"dryrun {a} {s} {v}: arguments "
+                            f"{mem['argument_size_in_bytes']} != shard "
+                            f"bytes {args}")
+        terms = [mem[k] for k in ("argument_size_in_bytes",
+                                  "output_size_in_bytes",
+                                  "temp_size_in_bytes",
+                                  "alias_size_in_bytes")]
+        terms += [summ["flops"], summ["bytes"], summ["collective_bytes_ici"],
+                  summ["collective_bytes_dcn"]]
+        terms += [row[k] for k in ("compute_s", "memory_s", "collective_s",
+                                   "collective_ring_s", "useful_flop_ratio",
+                                   "roofline_fraction",
+                                   "roofline_fraction_h100")]
+        if not all(_finite(t) for t in terms):
+            failures.append(f"dryrun {a} {s} {v}: a term is not finite and "
+                            f"non-negative: {terms}")
+        phase("dryrun", arch=a, shape=s, variant=v, mesh=rec["mesh"],
+              chips=rec["chips"], status=rec["status"],
+              argument_bytes=mem["argument_size_in_bytes"],
+              argument_bytes_recomputed=args,
+              temp_bytes=mem["temp_size_in_bytes"],
+              output_bytes=mem["output_size_in_bytes"],
+              alias_bytes=mem["alias_size_in_bytes"],
+              flops=summ["flops"], bytes=summ["bytes"],
+              collective_bytes_ici=summ["collective_bytes_ici"],
+              collective_bytes_dcn=summ["collective_bytes_dcn"],
+              collectives=summ["collectives"],
+              kernel_nodes=summ["kernel_nodes"], rank=rec["rank"],
+              roofline={k: row[k] for k in (
+                  "compute_s", "memory_s", "collective_s",
+                  "collective_ring_s", "dominant", "useful_flop_ratio",
+                  "roofline_fraction", "roofline_fraction_h100",
+                  "bound_time_s")},
+              platform="h100_sxm", num_drops=rec["num_drops"],
+              drops=rec["sharding_drops"][:8], notes=rec["notes"],
+              build_s=rec["build_s"], trace_s=rec["trace_s"],
+              graph_s=rec["graph_s"])
+
+
+def tensor_bytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def dryrun_check_phase(dev, recs: dict, failures: list) -> dict:
+    """``[dryrun-check]``: the 1-rank dry-run cells against the card (see
+    DRYRUN_CHECK).  Train: the predicted arguments against the allocated
+    AdamW state and batch, byte for byte; one real step of
+    ``make_train_step`` (the path: the kernel counts from zero before it),
+    its launches against the traced graph's kernel nodes, and the predicted
+    peak (arguments + traced temp) beside ``max_memory_allocated`` of the
+    step.  Decode: the same for the bf16 weights, the cache and the token,
+    one decode step at position 2047, and the int8 cache's bytes."""
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.dist.mesh import Mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import cosine_with_warmup
+    from repro_torch.train.step import init_state, make_train_step
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = get_config(DENSE_ARCH)
+    mesh = Mesh(("data", "model"), (1, 1), (torch.device("meta"),))
+    counters = kernel_counters()
+    launches = {}
+    for kind in ("train", "decode"):
+        rec = recs.get(f"check|{kind}")
+        if rec is None:
+            continue
+        if rec["status"] != "ok":
+            failures.append(f"dryrun-check {kind}: {rec['status']} "
+                            f"{rec.get('error', '')}")
+            phase("dryrun-check", cell=kind, status=rec["status"],
+                  error=rec.get("error"),
+                  traceback=rec.get("traceback", "")[-1500:])
+            continue
+        name, seq, batch, _ = DRYRUN_CHECK[kind]
+        shape = ShapeConfig(*DRYRUN_CHECK[kind])
+        fn, shapes, in_specs, _, ctx, meta = D.build_cell(
+            DENSE_ARCH, name, False, mesh=mesh, shape=shape)
+        predicted = rec["memory"]["argument_size_in_bytes"]
+        temp = rec["memory"]["temp_size_in_bytes"]
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        extra = {}
+        if kind == "train":
+            opt = make_optimizer(cfg.optimizer)
+            state = init_state(model, gen, opt)
+            data = synthetic_batch(cfg, DENSE, 0, dev)
+            data = {k: data[k] for k in ("tokens", "labels")}
+            allocated = tensor_bytes(
+                {"p": state.params, "o": state.opt_state,
+                 "s": state.step}) + tensor_bytes(data)
+            step = make_train_step(model, opt,
+                                   cosine_with_warmup(3e-4, 100, 10_000),
+                                   grad_accum=meta["grad_accum"])
+
+            def run():
+                return step(state, data)
+        else:
+            params = tree_map(
+                lambda t: t.to(torch.bfloat16) if t.is_floating_point()
+                else t, model.init(gen))
+            cache = model.init_cache(batch, seq, torch.bfloat16, dev)
+            token = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+            allocated = (tensor_bytes(params) + tensor_bytes(cache)
+                         + tensor_bytes(token))
+            int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+            _, ishapes, ispecs, _, ictx, _ = D.build_cell(
+                DENSE_ARCH, name, False, cfg=int8, mesh=mesh, shape=shape)
+            icache = build_model(int8).init_cache(batch, seq, torch.bfloat16,
+                                                  dev)
+            extra = {"int8_cache_bytes_predicted": D.shard_bytes(
+                ishapes[1], ispecs[1], ictx.mesh.sizes),
+                "int8_cache_bytes_allocated": tensor_bytes(icache)}
+            del icache
+            if (extra["int8_cache_bytes_predicted"]
+                    != extra["int8_cache_bytes_allocated"]
+                    or extra["int8_cache_bytes_allocated"]
+                    != INT8KV_BYTES["int8"]):
+                failures.append(f"dryrun-check int8 cache: {extra}")
+
+            def run():
+                with torch.no_grad():
+                    return model.decode(params, cache, token, seq - 1)
+        if predicted != allocated:
+            failures.append(f"dryrun-check {kind}: predicted arguments "
+                            f"{predicted} != allocated {allocated}")
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the path: counts from zero, read right after the step
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize(dev)
+        step_s = time.perf_counter() - t0
+        launches[kind] = {k: c.count for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        nodes = rec["summary"]["kernel_nodes"]
+        if {k: v for k, v in launches[kind].items() if v} != nodes:
+            failures.append(f"dryrun-check {kind}: launches "
+                            f"{launches[kind]} != traced kernel nodes "
+                            f"{nodes}")
+        measured_temp = peak - base
+        phase("dryrun-check", cell=kind, arch=cfg.name, seq=seq, batch=batch,
+              grad_accum=meta.get("grad_accum"),
+              arguments_predicted=predicted, arguments_allocated=allocated,
+              arguments_exact=predicted == allocated,
+              temp_predicted=temp, temp_measured=measured_temp,
+              temp_ratio=temp / measured_temp if measured_temp else None,
+              peak_predicted=predicted + temp, peak_measured=peak,
+              max_memory_allocated_gb=peak / 1e9,
+              kernel_nodes=nodes, launches=launches[kind],
+              flops=rec["summary"]["flops"], bytes=rec["summary"]["bytes"],
+              trace_s=rec["trace_s"], graph_s=rec["graph_s"],
+              real_step_s=step_s, **extra)
+        del out, run
+        if kind == "train":
+            del state, data, step
+        else:
+            del params, cache, token
+        torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_kernel_table(dev, gen, platform, launches: dict,
+                        failures: list) -> list:
+    """The kernels at the [dryrun-check] train step's shapes (one
+    llama3.2-1b microbatch of 2 x 2048), launches from that step."""
+    from repro_torch.configs.base import get_config
+
+    cfg, chip = get_config(DENSE_ARCH), platform.chip
+    train = launches.get("train")
+
+    def counts(kernel):
+        return (None, None) if train is None else (train[kernel],
+                                                   train[kernel])
+
+    b, s = DENSE["batch"] // DENSE["grad_accum"], DENSE["seq"]
+    return [rmsnorm_row(dev, gen, chip, "rmsnorm@dryrun-check-train",
+                        (b, s, cfg.d_model), cfg.norm_eps,
+                        *counts("rmsnorm"), failures),
+            flash_train_row(dev, gen, chip, "dryrun-check-train",
+                            *counts("flash_attention"), failures)]
+
+
+def dryrun_phases(dev, gen, platform, failures: list) -> list:
+    """``[dryrun]`` and ``[dryrun-check]``: every cell's process started
+    together, the card's real steps run meanwhile, then the records."""
+    out = tempfile.mkdtemp(prefix="dryrun-", dir=os.path.join(ROOT, "build"))
+    t0 = time.perf_counter()
+    started = start_dryrun(out)
+    try:
+        recs = finish_dryrun(started, failures)
+    finally:
+        for *_, proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    traced_s = time.perf_counter() - t0
+    dryrun_phase(recs, failures)
+    launches = dryrun_check_phase(dev, recs, failures)
+    phase("dryrun-time", processes=len(started), traces_wall_s=traced_s,
+          phases_s=time.perf_counter() - t0)
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dryrun_kernel_table(dev, gen, platform, launches, failures)
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -4008,7 +4387,8 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
-                                       "netprof", "int8kv", "roofline"),
+                                       "netprof", "int8kv", "roofline",
+                                       "dryrun"),
                     help="kernels: build, check and time the kernels alone "
                          "(no serve or train run, no launch counts); pp, ep, "
                          "obs, ckpt, netprof, int8kv or roofline: build and "
@@ -4018,8 +4398,12 @@ def main() -> int:
                          "pp-analyze and pp-obs; ckpt and ft; netprof; "
                          "int8-kv and int8-kv-step; the two simtrain rows "
                          "and their roofline; the layer profile into a fresh "
-                         "ProfileDB).  None prints the ok line")
+                         "ProfileDB; dryrun and dryrun-check).  None prints "
+                         "the ok line")
+    ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dryrun_cell:
+        return dryrun_worker(json.loads(args.dryrun_cell))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script checks the port on "
               "an NVIDIA card", file=sys.stderr)
@@ -4110,6 +4494,16 @@ def main() -> int:
                 torch.cuda.empty_cache()
             roofline_phase(rows, failures)
         print(json.dumps({"kernels": table}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
+    if args.only == "dryrun":
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        print(json.dumps({"kernels": dryrun_phases(dev, gen, platform,
+                                                   failures)}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
@@ -4215,6 +4609,11 @@ def main() -> int:
     ictx = int8kv_phase(dev, failures)
     torch.cuda.empty_cache()
     table += int8kv_kernel_table(dev, gen, platform, ictx, failures)
+    del ictx
+    torch.cuda.empty_cache()
+    # this slice: the dry run and its check against the card
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    table += dryrun_phases(dev, gen, platform, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

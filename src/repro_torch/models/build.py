@@ -10,6 +10,8 @@ functions on tensors::
                                                     # [+ patches or frames]
     logits, cache = model.decode(params, cache, token, cache_len)
     axes = model.param_axes()                       # logical axes
+    shapes, axes = model.abstract_params()          # nothing allocated
+    cache = model.abstract_cache(batch, max_len)    # likewise
 
 The JAX package's ``prefill(params, batch)`` reads ``batch["patches"]``
 (vlm) and ``batch["frames"]`` (audio); here they are the keyword arguments
@@ -30,7 +32,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, hybrid, transformer
 from repro_torch.tree import tree_map
@@ -65,6 +67,16 @@ class Model:
         axes = self.param_axes()
         return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype),
                         fake), axes
+
+    def abstract_cache(self, batch: int, max_len: int,
+                       dtype=torch.bfloat16):
+        """The cache tree's shapes and dtypes (:class:`ShapeDtype` leaves)
+        without allocating it: ``init_cache`` run on fake tensors."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            fake = self.init_cache(batch, max_len, dtype, device="cpu")
+        return tree_map(lambda t: ShapeDtype(tuple(t.shape), t.dtype), fake)
 
 
 @dataclass(frozen=True)
@@ -112,6 +124,50 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
                  decode=decode, init_cache=init_cache, cache_axes=cache_axes,
                  param_axes=param_axes)
+
+
+# ---------------------------------------------------------------------------
+# Input specs (ShapeDtype) per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Abstract inputs for the step function of this cell.
+
+    train/prefill: the token batch (plus stub modality inputs).
+    decode: the new token; the KV/SSM cache is ``Model.abstract_cache``'s.
+    """
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        text_len = S - cfg.num_patches if cfg.num_patches else S
+        assert text_len > 0
+        specs = {"tokens": ShapeDtype((B, text_len), i32)}
+        if shape.kind == "train":
+            specs["labels"] = ShapeDtype((B, text_len), i32)
+        if cfg.num_patches:
+            specs["patches"] = ShapeDtype((B, cfg.num_patches,
+                                           cfg.vision_dim), torch.bfloat16)
+        if cfg.family == "audio":
+            specs["frames"] = ShapeDtype((B, S, cfg.frontend_dim),
+                                         torch.bfloat16)
+        return specs
+    # decode: one new token against a cache of S tokens
+    return {"token": ShapeDtype((B, 1), i32)}
+
+
+def batch_logical_axes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Logical axes for each entry of :func:`input_specs`."""
+    if shape.kind in ("train", "prefill"):
+        axes = {"tokens": ("batch", None)}
+        if shape.kind == "train":
+            axes["labels"] = ("batch", None)
+        if cfg.num_patches:
+            axes["patches"] = ("batch", None, None)
+        if cfg.family == "audio":
+            axes["frames"] = ("batch", None, None)
+        return axes
+    return {"token": ("batch", None)}
 
 
 def load_jax_params(tree, device="cuda") -> dict:

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm
+from repro_torch.models import sharding as S
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -232,6 +233,7 @@ def _sdpa(q, k, v, cfg, *, q_offset: Optional[torch.Tensor] = None,
         # the JAX package's dry-run stub: zero-traffic attention of the same
         # output shape (no kernel runs)
         return q * (1.0 / math.sqrt(q.shape[-1]))
+    k, v = S.rank_view().kv(q, k, v)
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len)
 
@@ -261,8 +263,10 @@ def attention(p, x, cfg, *, positions, mask=None, cross_kv=None,
             q = q + p["bq"].to(cdt)
         k, v = cross_kv
         bidirectional = True
-    out = _sdpa(q, k, v, cfg, causal=not bidirectional)
-    return proj(out, p["wo"].to(cdt), 2)
+    rank = S.rank_view()
+    q, q_offset = rank.queries(q)
+    out = _sdpa(q, k, v, cfg, causal=not bidirectional, q_offset=q_offset)
+    return rank.gather(proj(out, p["wo"].to(cdt), 2))
 
 
 def cross_kv_from_memory(p, memory, cfg):
@@ -359,10 +363,12 @@ def attention_prefill(p, x, cfg, *, positions, cache):
     """Compute full causal attention AND write k/v into the cache at [0, S).
     The cache is updated in place and returned."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = _sdpa(q, k, v, cfg)
+    rank = S.rank_view()
+    q, q_offset = rank.queries(q)
+    out = _sdpa(q, k, v, cfg, q_offset=q_offset)
     cdt = dtype_of(cfg.compute_dtype)
     _cache_write(cache, k, v, 0)
-    return proj(out, p["wo"].to(cdt), 2), cache
+    return rank.gather(proj(out, p["wo"].to(cdt), 2)), cache
 
 
 def attention_decode(p, x, cfg, *, cache, cache_len: int):

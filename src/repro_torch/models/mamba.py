@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import _init_dense, dtype_of, proj
+from repro_torch.models.sharding import rank_view
 
 
 def mamba_dims(cfg: ArchConfig):
@@ -139,7 +140,8 @@ def mamba_forward(p, x, cfg: ArchConfig, *, conv_tails=None, init_state=None):
     cache_out = {"conv_x","conv_B","conv_C": tails, "state": (B,nh,ds,hd)}.
     init_state/conv_tails chain from a previous segment (prefill continuation).
     """
-    m, d_in, nh = mamba_dims(cfg)
+    m, _, nh = mamba_dims(cfg)
+    nh = rank_view().heads(p["wx"].shape[1], nh)   # a dry-run rank's share
     cdt = dtype_of(cfg.compute_dtype)
     z, xh, B_, C_, dt = _project(p, x, cfg)
     t = conv_tails or {}
@@ -214,7 +216,8 @@ MAMBA_CACHE_AXES = {
 
 def mamba_step(p, x, cfg: ArchConfig, cache):
     """Single-token decode. x: (B,1,D) -> (y, new_cache). O(1) in history."""
-    m, d_in, nh = mamba_dims(cfg)
+    _, _, nh = mamba_dims(cfg)
+    nh = rank_view().heads(p["wx"].shape[1], nh)   # a dry-run rank's share
     cdt = dtype_of(cfg.compute_dtype)
     z, xh, B_, C_, dt = _project(p, x, cfg)  # all (B,1,...)
 

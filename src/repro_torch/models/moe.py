@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.layers import _init_dense, dtype_of, proj
+from repro_torch.models.sharding import rank_view
 
 # moe_ffn calls by path since the last reset: "ep_a2a" and "einsum"
 EP_CALLS: dict[str, int] = {}
@@ -122,7 +123,7 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
         from repro_torch.models.sharding import current_ctx
 
         ctx = current_ctx()
-        if ctx is not None:
+        if ctx is not None and ctx.rank is None:
             from repro_torch.dist.ep_a2a import (
                 ep_a2a_feasible,
                 moe_ffn_ep_a2a,
@@ -143,6 +144,9 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
     xg = x.reshape(g, group, D)
     probs, gate_vals, expert_idx = route(p, xg, moe)
     oh_e, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
+    # a dry-run rank's experts (routing ran over all E); else all E
+    dispatch, combine = rank_view().experts(dispatch, combine,
+                                            p["wg"].shape[0])
 
     # -- expert compute -------------------------------------------------------
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xg.to(cdt))

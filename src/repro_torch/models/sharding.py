@@ -119,6 +119,71 @@ def _axes_of(part) -> tuple[str, ...]:
     return (part,) if isinstance(part, str) else tuple(part)
 
 
+@dataclass(frozen=True)
+class RankView:
+    """What one rank of a tensor-parallel program computes, for the dry
+    run's per-rank trace (``repro_torch.launch.dryrun``): ``model`` ranks
+    share the ``model`` axis, and ``seq_q`` of them split the queries'
+    sequence (1: every rank holds the whole sequence).  The model code asks
+    :func:`rank_view` for the rank's share, one call a site; outside the
+    dry run :data:`WHOLE` answers with the identity, so a tree of the wrong
+    shape still fails there."""
+
+    model: int = 1
+    seq_q: int = 1
+
+    def kv(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """The kv heads the rank's query heads read: a rank holding every
+        kv head (they did not split over ``model``) but its share of the
+        query heads reads the first ceil(K / model) of them."""
+        if k.shape[2] <= q.shape[2]:
+            return k, v
+        n = -(-k.shape[2] // self.model)
+        return k[:, :, :n], v[:, :, :n]
+
+    def queries(self, q: torch.Tensor):
+        """``(queries, q_offset)``: with the sequence split ``seq_q`` ways,
+        the rank's contiguous share, the last one (the causal mask's
+        longest rows), at its offset; else ``(q, None)``."""
+        if self.seq_q <= 1:
+            return q, None
+        b, s = q.shape[:2]
+        n = s // self.seq_q
+        off = torch.full((b,), s - n, dtype=torch.int32, device=q.device)
+        return q[:, s - n:], off
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """A block's output at the whole sequence again (the all-gather
+        over ``model``: a copy in the rank's trace)."""
+        return y if self.seq_q <= 1 else y.repeat(1, self.seq_q, 1)
+
+    def experts(self, dispatch: torch.Tensor, combine: torch.Tensor,
+                held: int):
+        """The dispatch and combine weights of the ``held`` experts the
+        rank holds (routing ran over all of them)."""
+        return dispatch[:, :, :held], combine[:, :, :held]
+
+    def heads(self, held: int, whole: int) -> int:
+        """The SSM heads the rank computes: those its weights hold."""
+        return held
+
+
+class _Whole(RankView):
+    """The view outside the dry run: every share is the whole."""
+
+    def kv(self, q, k, v):
+        return k, v
+
+    def experts(self, dispatch, combine, held):
+        return dispatch, combine
+
+    def heads(self, held, whole):
+        return whole
+
+
+WHOLE = _Whole()
+
+
 @dataclass
 class ShardingCtx:
     """Active (mesh, rules) pair that model code reads (``current_ctx``)."""
@@ -129,6 +194,9 @@ class ShardingCtx:
     )
     drops: list[Drop] = field(default_factory=list)
     zero1: bool = False
+    # set only while the dry run traces one rank's program; the model then
+    # computes that rank's share and runs no collective
+    rank: Optional[RankView] = None
 
     # -- resolution ---------------------------------------------------------
 
@@ -250,6 +318,13 @@ def make_ctx(
     if overrides:
         rules.update(overrides)
     return ShardingCtx(mesh=mesh, rules=rules, zero1=zero1)
+
+
+def rank_view() -> RankView:
+    """The active context's rank view while the dry run traces one rank's
+    program, else :data:`WHOLE`."""
+    ctx = current_ctx()
+    return WHOLE if ctx is None or ctx.rank is None else ctx.rank
 
 
 def shard_hint(x: torch.Tensor, axes: Axes, name: str = "act"):

@@ -76,6 +76,28 @@ def init_state(model: Model, gen: torch.Generator, optimizer: Optimizer,
                       optimizer.init(params), comp)
 
 
+def abstract_state(model: Model, optimizer: Optimizer, seed: int = 0,
+                   compression: Optional[str] = None, dp: int = 1):
+    """``(state, axes)``: the full :class:`TrainState`'s shapes and dtypes
+    (``models.build.ShapeDtype`` leaves), :func:`init_state` run on fake
+    tensors, and the parameters' logical axes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.build import ShapeDtype
+
+    with FakeTensorMode():
+        state = init_state(model, torch.Generator().manual_seed(seed),
+                           optimizer, compression, dp)
+
+    def shape(t):
+        return ShapeDtype(tuple(t.shape), t.dtype)
+
+    return (TrainState(shape(state.step), tree_map(shape, state.params),
+                       tree_map(shape, state.opt_state),
+                       tree_map(shape, state.comp_state)),
+            model.param_axes())
+
+
 def _split_microbatches(batch: dict, accum: int) -> dict:
     def split(x):
         b = x.shape[0]

@@ -62,7 +62,8 @@ _NEW_MODULES = {
     "repro_torch.ckpt.checkpoint", "repro_torch.ft.elastic",
     "repro_torch.ft.heartbeat", "repro_torch.ft.straggler",
     "repro_torch.netprof.sweep", "repro_torch.netprof.report",
-    "repro_torch.netprof.calibrate",
+    "repro_torch.netprof.calibrate", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
 }
 
 _WALK = """
