@@ -20,6 +20,8 @@
                                            # simtrain rows and their roofline
     python3 chip_smoke.py --only dryrun    # kernels' checks, then the dry
                                            # run's cells and its check
+    python3 chip_smoke.py --only bench     # kernels' checks, then the
+                                           # port's bench gate's rows
 
 Phases, each printing one line of numbers:
 
@@ -273,7 +275,18 @@ Phases, each printing one line of numbers:
              against the launches of one real step (the path: counts from
              zero before it), and the predicted peak (arguments + traced
              temp) beside ``max_memory_allocated`` of that step (not gated);
-39. a JSON line of every kernel at the serve and train shapes: launches on
+39. bench-gate — the port's bench gate (``scripts/bench_gate_port.py``):
+             its 52 deterministic rows (schedule ticks, the serve twin and
+             coverage audit on the acceptance trace, the overlap pins, the
+             pipeline byte twins, the netprof fit) against the JAX package's
+             ``benchmarks/baselines/bench_baseline.json`` within their bands;
+             its executor rows on the card: the tiny 4-layer llama (fp32)
+             through interleaved 1F1B on a 1-rank mesh from a seeded init,
+             every gradient leaf against autograd of the unpipelined
+             reference within the baseline's band (the loss printed beside
+             the baseline's, not held: another init), 16 flash and 34
+             RMSNorm launches asserted;
+40. a JSON line of every kernel at the serve and train shapes: launches on
    the serve or train run, error against the plain version, device times
    of the kernel, the plain version and one PyTorch library call where one
    computes the same function (``ms``, ``plain_ms``, ``library_ms``; for
@@ -450,7 +463,9 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                "int8kv-prefill": ((8, 1024, 1024, 32, 8, 64), torch.bfloat16,
                                   ATTN_BF16_TOL, True),
                "dryrun-check-train": ((2, 2048, 2048, 32, 8, 64),
-                                      torch.bfloat16, ATTN_BF16_TOL, True)}
+                                      torch.bfloat16, ATTN_BF16_TOL, True),
+               "bench-exec": ((2, 16, 16, 2, 2, 32), torch.float32, FP32_TOL,
+                              True)}
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -1557,9 +1572,11 @@ def train_kernel_table(dev, gen, ctx: dict, failures: list,
 
 
 def rmsnorm_row(dev, gen, chip, name: str, shape: tuple, eps: float,
-                launches, per_step, failures: list) -> dict:
-    """RMSNorm at a train path's shape, x bf16 and w fp32 as in the model,
-    held against its plain version with the bf16 tolerance."""
+                launches, per_step, failures: list,
+                dtype=torch.bfloat16) -> dict:
+    """RMSNorm at a train path's shape, x in ``dtype`` (bf16 unless the
+    path computes in fp32) and w fp32 as in the model, held against its
+    plain version with that dtype's tolerance."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm.ops import cost as rms_cost
@@ -1567,22 +1584,24 @@ def rmsnorm_row(dev, gen, chip, name: str, shape: tuple, eps: float,
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
     d = shape[-1]
-    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=dev).to(dtype)
     w = torch.randn(d, generator=gen, device=dev)
     ops_, nbytes = rms_cost(x, w, eps, x.dtype)
     bms, by = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
-    w_lib = w.to(torch.bfloat16)
+    w_lib = w.to(dtype)
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
     y, yr = fused_rmsnorm(x, w, eps=eps), rmsnorm_ref(x, w, eps)
     err = max_err(y, yr)
-    if not close(y, yr, BF16_TOL):
+    if not close(y, yr, tol):
         failures.append(f"{name}: max abs err {err:.3g} over tolerance "
-                        f"{BF16_TOL}")
+                        f"{tol}")
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:37",
         "launches": launches, "launches_per_step": per_step,
-        "shape": f"x {tuple(shape)} bf16, w fp32",
+        "shape": f"x {tuple(shape)} "
+                 f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}, w fp32",
         "max_abs_err": err,
         "ms": cuda_ms(lambda: fused_rmsnorm(x, w, eps=eps)),
         "call_ms": call_ms(lambda: fused_rmsnorm(x, w, eps=eps)),
@@ -4360,6 +4379,82 @@ def dryrun_phases(dev, gen, platform, failures: list) -> list:
     return dryrun_kernel_table(dev, gen, platform, launches, failures)
 
 
+def bench_gate_module():
+    """``scripts/bench_gate_port.py`` as a module (``scripts/`` is not a
+    package); it imports neither JAX nor the JAX package unless its
+    ``jax_params`` is called, which this script never does."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_gate_port", os.path.join(ROOT, "scripts", "bench_gate_port.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_gate_phase(dev, gen, platform, failures: list) -> list:
+    """``[bench-gate]``: the port's bench gate on the card.  Its 52
+    deterministic rows are held to benchmarks/baselines/bench_baseline.json
+    within their bands.  Its executor rows run the tiny 4-layer llama
+    (d_model 64, 2/2 heads of 32, fp32, "dots" remat) through interleaved
+    1F1B with 2 virtual stages on a 1-rank mesh, 2 microbatches of 2 x 16
+    tokens, from the port's own seeded init: the worst gradient leaf against
+    autograd of the unpipelined reference within the baseline's band (which
+    does not depend on the init); the loss is printed and not held (the
+    baseline's is the JAX package's init's).  The executor's step runs
+    through the kernels (the counts from zero before it); then the kernel
+    rows at its shapes."""
+    from repro_torch.models import build_model
+
+    G = bench_gate_module()
+    with open(G.DEFAULT_BASELINE) as f:
+        baseline = json.load(f)["metrics"]
+    t0 = time.perf_counter()
+    metrics = G.deterministic_metrics()
+    det_s = time.perf_counter() - t0
+    cfg = G.exec_config()
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    for c in kernel_counters().values():
+        c.reset()
+    t0 = time.perf_counter()
+    loss_row, grad_row = G.execution_rows(params, dev)
+    torch.cuda.synchronize(dev)
+    exec_s = time.perf_counter() - t0
+    launches = grad_row["launches"]
+    want = {k: v for k, v in train_launches(cfg, G.EXEC_MICROBATCHES).items()
+            if k in launches}
+    if launches != want:
+        failures.append(f"bench-gate: the executor's step launched "
+                        f"{launches}, want {want}")
+    metrics[grad_row["name"]] = G._metric(grad_row)
+    # the loss is this init's, not the baseline's: reported, not held
+    held = {k: v for k, v in baseline.items() if k != loss_row["name"]}
+    rows = G.drift_table(metrics, held)
+    for msg in G.compare(metrics, held, rows=rows):
+        failures.append(f"bench-gate: {msg}")
+    det = [r for r in rows if r["name"] in metrics
+           and not r["name"].startswith("pipe_exec")]
+    phase("bench-gate", baseline=os.path.relpath(G.DEFAULT_BASELINE, ROOT),
+          metrics=len(baseline), held=len(rows),
+          in_band=sum(r["status"] == "ok" for r in rows),
+          deterministic=len(det),
+          deterministic_exact=sum(r["diff"] == 0.0 for r in det),
+          out_of_band=[r["name"] for r in rows if r["status"] != "ok"],
+          pipe_exec_loss=loss_row["value"],
+          pipe_exec_loss_baseline=baseline[loss_row["name"]]["value"],
+          pipe_exec_grad_rel_err=grad_row["value"],
+          pipe_exec_grad_band=baseline[grad_row["name"]]["tol_abs"],
+          launches=launches, launches_expected=want,
+          deterministic_s=det_s, executor_s=exec_s)
+    b, s = G.EXEC_BATCH // G.EXEC_MICROBATCHES, G.EXEC_SEQ
+    return [rmsnorm_row(dev, gen, platform.chip, "rmsnorm@bench-exec",
+                        (b, s, cfg.d_model), cfg.norm_eps,
+                        launches["rmsnorm"], None, failures,
+                        dtype=torch.float32),
+            flash_train_row(dev, gen, platform.chip, "bench-exec",
+                            launches["flash_attention"], None, failures)]
+
+
 def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     """``--only kernels``: the kernel rows at the serve and train shapes
     without driving the paths, so every launch field is null."""
@@ -4388,18 +4483,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
                                        "netprof", "int8kv", "roofline",
-                                       "dryrun"),
+                                       "dryrun", "bench"),
                     help="kernels: build, check and time the kernels alone "
                          "(no serve or train run, no launch counts); pp, ep, "
-                         "obs, ckpt, netprof, int8kv or roofline: build and "
+                         "obs, ckpt, netprof, int8kv, roofline, dryrun or "
+                         "bench: build and "
                          "check the kernels, then that slice's phases alone "
                          "(remat-dots, pp-*, autotune; ep-*; serve-shard, "
                          "serve-obs, serve-analyze and pp-train with "
                          "pp-analyze and pp-obs; ckpt and ft; netprof; "
                          "int8-kv and int8-kv-step; the two simtrain rows "
                          "and their roofline; the layer profile into a fresh "
-                         "ProfileDB; dryrun and dryrun-check).  None prints "
-                         "the ok line")
+                         "ProfileDB; dryrun and dryrun-check; bench-gate).  "
+                         "None prints the ok line")
     ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dryrun_cell:
@@ -4504,6 +4600,15 @@ def main() -> int:
         os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
         print(json.dumps({"kernels": dryrun_phases(dev, gen, platform,
                                                    failures)}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
+    if args.only == "bench":
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        print(json.dumps({"kernels": bench_gate_phase(dev, gen, platform,
+                                                      failures)}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
@@ -4614,6 +4719,9 @@ def main() -> int:
     # this slice: the dry run and its check against the card
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     table += dryrun_phases(dev, gen, platform, failures)
+    torch.cuda.empty_cache()
+    # this slice: the bench gate's rows
+    table += bench_gate_phase(dev, gen, platform, failures)
     print(json.dumps({"kernels": table}), flush=True)
     for f in failures:
         print(f"FAIL {f}", flush=True)

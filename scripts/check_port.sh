@@ -28,23 +28,36 @@
 #   check_port.sh analyze     the static plan verifier over every config and
 #                             the serve acceptance trace
 #   check_port.sh cuda        the card tests (-m cuda); needs an NVIDIA card
-#   check_port.sh bench       not ported: exits 1 (see below)
+#   check_port.sh bench       the benchmark gate: the 54 metrics of
+#                             benchmarks/baselines/bench_baseline.json
+#                             recomputed through the port
+#                             (scripts/bench_gate_port.py; --smoke skips the
+#                             two executor rows, --out PATH moves the report)
 # Options: --ranks N (default 8) stands for check.sh's
 # --force-host-devices N: the port's collectives run over N logical ranks.
+# Other options go to the bench gate.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
 export PYTHONPATH="src${PYTHONPATH:+:$PYTHONPATH}"
 DEVICE="${DEVICE:-cuda}"
-MODE="fast"
+MODE=""
 RANKS=8
+EXTRA=()
 while [[ $# -gt 0 ]]; do
     case "$1" in
         --ranks) RANKS="$2"; shift 2 ;;
         --ranks=*) RANKS="${1#*=}"; shift ;;
-        *) MODE="$1"; shift ;;
+        -*) EXTRA+=("$1"); shift ;;
+        *) if [[ -z "$MODE" ]]; then MODE="$1"; else EXTRA+=("$1"); fi
+           shift ;;
     esac
 done
+MODE="${MODE:-fast}"
+if [[ ${#EXTRA[@]} -gt 0 && "$MODE" != bench ]]; then
+    echo "[check_port] $MODE: unknown arguments: ${EXTRA[*]}" >&2
+    exit 2
+fi
 
 python - <<EOF
 import platform, torch
@@ -162,12 +175,9 @@ cuda)
         tests/test_torch_dryrun.py
     ;;
 bench)
-    # check.sh's bench recomputes the committed rows of
-    # benchmarks/baselines/bench_baseline.json through benchmarks/bench_*.py;
-    # that folder is not ported yet, so there is no port gate to pass
-    echo "[check_port] bench: not ported; it waits for the benchmarks/" \
-         "rows (ROADMAP A18)" >&2
-    exit 1
+    need_device
+    exec python scripts/bench_gate_port.py --device "$DEVICE" \
+        ${EXTRA[@]+"${EXTRA[@]}"}
     ;;
 *)
     echo "[check_port] unknown mode '$MODE'" >&2

@@ -6,4 +6,5 @@ from repro_torch.models.build import (  # noqa: F401
     compute_params,
     input_specs,
     load_jax_params,
+    make_concrete_batch,
 )

@@ -170,6 +170,24 @@ def batch_logical_axes(cfg: ArchConfig, shape: ShapeConfig) -> dict:
     return {"token": ("batch", None)}
 
 
+def make_concrete_batch(cfg: ArchConfig, shape: ShapeConfig, seed: int = 0,
+                        device="cuda") -> dict:
+    """Real inputs matching :func:`input_specs`, on ``device``: the JAX
+    package's ``make_concrete_batch`` bit for bit (the same numpy draws in
+    the same order; floats drawn in fp32 and rounded to the spec's dtype)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, sds in input_specs(cfg, shape).items():
+        if sds.dtype.is_floating_point:
+            a = rng.standard_normal(sds.shape, dtype=np.float32)
+            out[k] = torch.from_numpy(a).to(device=device, dtype=sds.dtype)
+        else:
+            a = rng.integers(0, cfg.vocab_size, size=sds.shape,
+                             dtype=np.int32)
+            out[k] = torch.from_numpy(a).to(device)
+    return out
+
+
 def load_jax_params(tree, device="cuda") -> dict:
     """The JAX package's parameter tree (numpy leaves) as tensors on
     ``device``, keys, shapes and dtypes unchanged (the mamba tree's fp32

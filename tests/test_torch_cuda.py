@@ -867,3 +867,31 @@ def test_int8_decode_on_card_matches_cpu_decode(dev):
             torch.testing.assert_close(ld.cpu(), lc, rtol=2e-2, atol=2e-2)
             clen += 1
     assert cd["k"].dtype == torch.int8 and cd["k_scale"].device.type == "cuda"
+
+
+def test_bench_gate_executor_rows_on_card(dev):
+    """The port's bench gate's executor rows on the card from the port's own
+    seeded init: the worst gradient leaf within the baseline's band (5e-4,
+    which does not depend on the init), the loss finite, and the step
+    through both kernels."""
+    import importlib.util
+    import os
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.models import build_model
+
+    path = os.path.join(os.path.dirname(__file__), "..", "scripts",
+                        "bench_gate_port.py")
+    spec = importlib.util.spec_from_file_location("bench_gate_port", path)
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    params = build_model(gate.exec_config()).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n_fa, n_rms = fa.LAUNCHES.count, rms.LAUNCHES.count
+    loss, grad = gate.execution_rows(params, dev)
+    assert fa.LAUNCHES.count > n_fa and rms.LAUNCHES.count > n_rms
+    assert loss["launches"]["flash_attention"] > 0
+    assert loss["launches"]["rmsnorm"] > 0
+    assert np.isfinite(loss["value"])
+    assert grad["value"] <= 5e-4
