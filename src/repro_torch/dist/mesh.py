@@ -28,9 +28,9 @@ from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.device import resolve_device
+from repro_torch.obs.record import prange
 
 # bytes moved by the collectives since the last reset, by kind:
 # "ppermute" (one per hop), "psum" (each rank's contribution), "psum_int8"
@@ -226,7 +226,7 @@ def all_to_all(xs: list, devices: list, split_axis: int,
         if x.shape[split_axis] != n:
             raise ValueError(f"all_to_all over {n} ranks: split axis "
                              f"{split_axis} of {tuple(x.shape)} is not {n}")
-    with record_function("dist.all_to_all"):
+    with prange("dist.all_to_all"):
         pieces = [x.unbind(split_axis) for x in xs]
         return [torch.stack([hop(pieces[j][r], devices[r], "all_to_all")
                              for j in range(n)], dim=concat_axis)

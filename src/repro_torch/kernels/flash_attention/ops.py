@@ -228,8 +228,11 @@ def _setup(ctx, inputs, output):
 
 
 def _backward(ctx, g):
+    # here, not at the top: repro_torch.obs imports the model layer
+    from repro_torch.obs.record import prange
+
     q, k, v, q_offset, kv_len = ctx.saved_tensors
-    with torch.enable_grad(), torch.profiler.record_function(
+    with torch.enable_grad(), prange(
             "repro_torch::flash_attention.backward"):
         leaves = [t.detach().requires_grad_(need)
                   for t, need in zip((q, k, v), ctx.needs_input_grad)]

@@ -306,8 +306,11 @@ def _setup(ctx, inputs, output):
 
 
 def _backward(ctx, gy, gst):
+    # here, not at the top: repro_torch.obs imports the model layer
+    from repro_torch.obs.record import prange
+
     ins = ctx.saved_tensors
-    with torch.enable_grad(), torch.profiler.record_function(
+    with torch.enable_grad(), prange(
             "repro_torch::ssd_scan.backward"):
         leaves = [t.detach().requires_grad_(need)
                   for t, need in zip(ins, ctx.needs_input_grad)]

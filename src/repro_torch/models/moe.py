@@ -16,7 +16,9 @@ dispatch, no sorts), so one path serves training and serving.
 (single-rank runs, the pipeline executor's stages, the compressed step) or
 on an infeasible mesh.  That is the JAX package's rule; the two paths agree
 at capacity parity.  :data:`EP_CALLS` counts the calls of each path, so a
-run can show which one its MoE layers took.
+run can show which one its MoE layers took.  The einsum path, from routing
+to combine, is the ``torch.profiler`` range ``moe.ffn``
+(``obs.record.prange``).
 """
 from __future__ import annotations
 
@@ -132,6 +134,10 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
             if ep_a2a_feasible(x.shape, moe, ctx.mesh):
                 EP_CALLS["ep_a2a"] = EP_CALLS.get("ep_a2a", 0) + 1
                 return moe_ffn_ep_a2a(p, x, moe, compute_dtype, ctx.mesh)
+    # here, not at the top: repro_torch.obs imports dist.ep_a2a, which
+    # imports this module
+    from repro_torch.obs.record import prange
+
     EP_CALLS["einsum"] = EP_CALLS.get("einsum", 0) + 1
     cdt = dtype_of(compute_dtype)
     B, S, D = x.shape
@@ -141,23 +147,25 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
     E = moe.num_experts
     C = capacity(moe, group)
 
-    xg = x.reshape(g, group, D)
-    probs, gate_vals, expert_idx = route(p, xg, moe)
-    oh_e, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
-    # a dry-run rank's experts (routing ran over all E); else all E
-    dispatch, combine = rank_view().experts(dispatch, combine,
-                                            p["wg"].shape[0])
+    with prange("moe.ffn"):
+        xg = x.reshape(g, group, D)
+        probs, gate_vals, expert_idx = route(p, xg, moe)
+        oh_e, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
+        # a dry-run rank's experts (routing ran over all E); else all E
+        dispatch, combine = rank_view().experts(dispatch, combine,
+                                                p["wg"].shape[0])
 
-    # -- expert compute -------------------------------------------------------
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xg.to(cdt))
-    gph = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(cdt))
-    uph = torch.einsum("egcd,edf->egcf", expert_in, p["wu"].to(cdt))
-    h = F.silu(gph) * uph
-    expert_out = torch.einsum("egcf,efd->egcd", h, p["wd"].to(cdt))
+        # -- expert compute ---------------------------------------------------
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt),
+                                 xg.to(cdt))
+        gph = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(cdt))
+        uph = torch.einsum("egcd,edf->egcf", expert_in, p["wu"].to(cdt))
+        h = F.silu(gph) * uph
+        expert_out = torch.einsum("egcf,efd->egcd", h, p["wd"].to(cdt))
 
-    # -- combine --------------------------------------------------------------
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), expert_out)
-    y = y.reshape(B, S, D)
+        # -- combine ----------------------------------------------------------
+        y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), expert_out)
+        y = y.reshape(B, S, D)
 
     # -- load-balance auxiliary loss (Switch/GShard): the fraction of tokens
     # whose top choice is each expert times its mean router probability

@@ -27,6 +27,12 @@ single parity percentage.  Three pieces:
   twin, O002 simulated node never observed, O003 provenance-class error
   over tolerance).
 
+:func:`~repro_torch.obs.record.prange` names a stretch of the program
+for ``torch.profiler``: the train step's phases, the plain VJPs, the paged
+forward's gathers and head and the MoE FFN as host events with device-side
+ranges, the serve engine's host loop as host events alone.  It costs a
+flag read when no profiler runs.
+
 Entry points: ``launch/train.py --pp 2 --obs --trace-out t.json`` and
 ``launch/serve.py --trace ... --obs --trace-out s.json``.  ``diff`` and
 ``overlay`` are copies of the JAX package's modules; ``replay`` re-executes
@@ -42,5 +48,6 @@ from repro_torch.obs.record import (  # noqa: F401
     Recorder,
     Span,
     SpanError,
+    prange,
 )
 from repro_torch.obs.replay import replay_pipeline_ops  # noqa: F401

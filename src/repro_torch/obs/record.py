@@ -24,6 +24,13 @@ Design constraints, in order of importance:
   serialized with sorted keys, so the exported JSON is byte-identical
   across processes and ``PYTHONHASHSEED`` values (asserted in
   tests/test_obs.py, same convention as the serve sim determinism gate).
+
+:func:`prange` is the port's one way to name a stretch of work for
+``torch.profiler``: while a profiler runs, a range whose host event (and,
+for a ``record_function``, device-side range) sits on the profiler's
+clock beside the device operations; the shared no-op context otherwise.
+The Recorder's spans are the simulator's vocabulary on the host clock;
+the ranges are the profiler's, and neither feeds the other.
 """
 from __future__ import annotations
 
@@ -31,6 +38,9 @@ import json
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
 class SpanError(RuntimeError):
@@ -96,6 +106,27 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+def prange(name: str, device: bool = True):
+    """A profiler range named ``name`` while a profiler runs; otherwise the
+    shared no-op context, at the cost of one flag read
+    (``record_function`` itself costs a dispatcher call with no profiler
+    running).
+
+    ``device=True``: a ``torch.profiler.record_function``, a host event
+    and a device-side range.  The profiler gives each device operation to
+    the innermost such range open at its launch, so a range's device side
+    spans only the operations no inner range claims.  ``device=False``: a
+    host event alone (the profiler's function scope, as an operator's),
+    which leaves the operations launched inside it to the enclosing
+    device range: the serve engine's loop uses it, so a caller's range
+    around a step or a paged call keeps its device side."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    if device:
+        return torch.profiler.record_function(name)
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 class _Interval:

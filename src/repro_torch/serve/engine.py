@@ -33,6 +33,28 @@ log, the scheduler and the twins do not change.
 
 :func:`splice_cache` is the JAX package's whole-cache helper for the
 non-paged path; neither engine calls it.
+
+While a ``torch.profiler`` runs, the host loop is named by host ranges
+(``obs.record.prange(..., device=False)``: host events that leave the
+device operations to a caller's range around the step or the paged call;
+without a profiler each costs a flag read):
+
+* ``serve.step`` — the whole :meth:`ServeEngine.step` call;
+* ``serve.plan`` — ``plan_step`` and ``skip_to``: admission and batching;
+* ``serve.inputs`` — the admitted slots' table writes, and each call's
+  numpy tokens, lengths and tables with their device copies;
+* ``serve.prefill`` / ``serve.decode`` — the call into the paged forward
+  (``paged.prefill_chunk`` / ``decode_batch``, looked up on the module at
+  each call, so a wrapper set on the module sees every call);
+* ``serve.readback`` — the argmax and its ``int()`` or ``.cpu()``;
+* ``serve.commit`` — ``sched.commit`` through finishing requests and the
+  Recorder's counters.
+
+The step's measured duration (``step_durations``) keeps its two clock
+reads: the first ahead of ``serve.inputs``, the second inside
+``serve.commit`` right after ``sched.commit``, where they were before the
+ranges.  The paged forward's own ranges are ``paged.kv_gather``,
+``paged.head`` and ``moe.ffn``.
 """
 from __future__ import annotations
 
@@ -45,7 +67,7 @@ import torch
 
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models.build import Model, compute_params, to_device
-from repro_torch.obs.record import Recorder
+from repro_torch.obs.record import Recorder, prange
 from repro_torch.serve import paged
 from repro_torch.serve.policy import ServeConfig, ServeScheduler, StepPlan
 
@@ -124,28 +146,28 @@ class ServeEngine:
         return torch.as_tensor(a, device=self.device)
 
     def _prefill(self, toks, start: int, width: int, row):
+        """One chunk through the paged forward; ``toks`` and ``row`` are
+        device tensors (:meth:`_tensor`)."""
         if self._replicas is not None:
             return paged.prefill_replicated(
-                self._replicas, self._tensor(toks), start,
-                width, self._tensor(row), self.sched.scratch_block,
-                self.cfg, self.serve_cfg,
+                self._replicas, toks, start, width, row,
+                self.sched.scratch_block, self.cfg, self.serve_cfg,
             )
         return paged.prefill_chunk(
-            self.params, self.pool, self._tensor(toks), start, width,
-            self._tensor(row), self.sched.scratch_block, self.cfg,
-            self.serve_cfg,
+            self.params, self.pool, toks, start, width, row,
+            self.sched.scratch_block, self.cfg, self.serve_cfg,
         )
 
     def _decode(self, toks, lengths, tables):
+        """The decode batch through the paged forward; the inputs are
+        device tensors (:meth:`_tensor`)."""
         if self._replicas is not None:
             return paged.decode_slot_sharded(
-                self._replicas, self._tensor(toks),
-                self._tensor(lengths), self._tensor(tables), self.cfg,
+                self._replicas, toks, lengths, tables, self.cfg,
                 self.serve_cfg, self.mesh,
             )
         return paged.decode_batch(
-            self.params, self.pool, self._tensor(toks),
-            self._tensor(lengths), self._tensor(tables), self.cfg,
+            self.params, self.pool, toks, lengths, tables, self.cfg,
             self.serve_cfg,
         )
 
@@ -162,17 +184,18 @@ class ServeEngine:
         changes."""
         scfg = self.serve_cfg
         scratch = self.sched.scratch_block
-        row = np.full((scfg.max_blocks_per_slot,), scratch, np.int32)
+        row = self._tensor(
+            np.full((scfg.max_blocks_per_slot,), scratch, np.int32))
         bucket = 1
         while bucket <= scfg.chunk:
-            toks = np.zeros((1, bucket), np.int32)
+            toks = self._tensor(np.zeros((1, bucket), np.int32))
             logits, _ = self._prefill(toks, 0, bucket, row)
             int(torch.argmax(logits[0, -1]))
             bucket *= 2
         logits, _ = self._decode(
-            np.zeros((self.slots, 1), np.int32),
-            np.zeros((self.slots,), np.int32),
-            np.full_like(self._tables, scratch),
+            self._tensor(np.zeros((self.slots, 1), np.int32)),
+            self._tensor(np.zeros((self.slots,), np.int32)),
+            self._tensor(np.full_like(self._tables, scratch)),
         )
         torch.argmax(logits[:, -1], dim=-1).cpu()
 
@@ -188,19 +211,21 @@ class ServeEngine:
 
     def step(self) -> bool:
         """Execute one scheduler step; False if nothing can progress."""
-        plan = self.sched.plan_step()
-        if plan.empty:
-            nxt = self.sched.next_arrival()
-            if nxt is None:
-                return False
-            # open-loop replay: jump the clock to the next arrival instead
-            # of sleeping through the gap
-            self.sched.skip_to(nxt)
-            plan = self.sched.plan_step()
-            if plan.empty:
-                return False
-        with torch.inference_mode():
-            self._execute(plan)
+        with prange("serve.step", device=False):
+            with prange("serve.plan", device=False):
+                plan = self.sched.plan_step()
+                if plan.empty:
+                    nxt = self.sched.next_arrival()
+                    if nxt is None:
+                        return False
+                    # open-loop replay: jump the clock to the next arrival
+                    # instead of sleeping through the gap
+                    self.sched.skip_to(nxt)
+                    plan = self.sched.plan_step()
+                    if plan.empty:
+                        return False
+            with torch.inference_mode():
+                self._execute(plan)
         return True
 
     def _execute(self, plan: StepPlan) -> None:
@@ -209,115 +234,130 @@ class ServeEngine:
             f"step{plan.index}", "host", kind="serve-step", role="step"
         )
         scratch = self.sched.scratch_block
-        for rid, slot in plan.admitted:
-            req = self.requests[rid]
-            self.slot_req[slot] = req
-            state = self.sched.slot_state(slot)
-            if state is None:
-                raise RuntimeError(
-                    f"step {plan.index}: request {rid} admitted to slot "
-                    f"{slot} but the scheduler holds no slot state "
-                    f"(statically detectable as R006)"
-                )
-            blocks = state.blocks
-            self._tables[slot] = scratch
-            self._tables[slot, : len(blocks)] = blocks
+        with prange("serve.inputs", device=False):
+            for rid, slot in plan.admitted:
+                req = self.requests[rid]
+                self.slot_req[slot] = req
+                state = self.sched.slot_state(slot)
+                if state is None:
+                    raise RuntimeError(
+                        f"step {plan.index}: request {rid} admitted to slot "
+                        f"{slot} but the scheduler holds no slot state "
+                        f"(statically detectable as R006)"
+                    )
+                blocks = state.blocks
+                self._tables[slot] = scratch
+                self._tables[slot, : len(blocks)] = blocks
 
         new_tokens: dict[int, int] = {}
         if plan.prefill is not None:
             pf = plan.prefill
-            req = self.slot_req[pf.slot]
-            if req is None or req.rid != pf.rid:
-                raise RuntimeError(
-                    f"step {plan.index}: prefill chunk targets request "
-                    f"{pf.rid} in slot {pf.slot}, but the slot holds "
-                    f"{'no request' if req is None else f'request {req.rid}'} "
-                    f"(statically detectable as R006)"
+            with prange("serve.inputs", device=False):
+                req = self.slot_req[pf.slot]
+                if req is None or req.rid != pf.rid:
+                    held = ("no request" if req is None
+                            else f"request {req.rid}")
+                    raise RuntimeError(
+                        f"step {plan.index}: prefill chunk targets request "
+                        f"{pf.rid} in slot {pf.slot}, but the slot holds "
+                        f"{held} (statically detectable as R006)"
+                    )
+                toks = np.zeros((1, pf.bucket), np.int32)
+                end = pf.start + pf.width
+                toks[0, : pf.width] = req.prompt[pf.start : end]
+                t0 = rec.clock() if rec.enabled else 0.0
+                toks_t = self._tensor(toks)
+                row_t = self._tensor(self._tables[pf.slot])
+            with prange("serve.prefill", device=False):
+                logits, self.pool = self._prefill(
+                    toks_t, pf.start, pf.width, row_t
                 )
-            toks = np.zeros((1, pf.bucket), np.int32)
-            toks[0, : pf.width] = req.prompt[pf.start : pf.start + pf.width]
-            t0 = rec.clock() if rec.enabled else 0.0
-            logits, self.pool = self._prefill(
-                toks, pf.start, pf.width, self._tables[pf.slot]
-            )
-            if pf.final:
-                new_tokens[pf.slot] = int(torch.argmax(logits[0, -1]))
-            if rec.enabled:
-                synchronize(self.device)
-                rec.emit(
-                    f"step{plan.index}/prefill"
-                    f"[r{pf.rid}@{pf.start}+{pf.width}]",
-                    "chip", t0, rec.clock(), kind="prefill",
-                    rid=pf.rid, slot=pf.slot, bucket=pf.bucket,
-                )
+            with prange("serve.readback", device=False):
+                if pf.final:
+                    new_tokens[pf.slot] = int(torch.argmax(logits[0, -1]))
+                if rec.enabled:
+                    synchronize(self.device)
+                    rec.emit(
+                        f"step{plan.index}/prefill"
+                        f"[r{pf.rid}@{pf.start}+{pf.width}]",
+                        "chip", t0, rec.clock(), kind="prefill",
+                        rid=pf.rid, slot=pf.slot, bucket=pf.bucket,
+                    )
 
         eos_slots: set[int] = set()
         if plan.decode_slots:
-            toks = np.zeros((self.slots, 1), np.int32)
-            lengths = np.zeros((self.slots,), np.int32)
-            tables = np.full_like(self._tables, scratch)
-            for s in plan.decode_slots:
-                req = self.slot_req[s]
-                state = self.sched.slot_state(s)
-                if req is None or state is None:
-                    raise RuntimeError(
-                        f"step {plan.index}: decode batch includes slot "
-                        f"{s} with no admitted request (statically "
-                        f"detectable as R006)"
+            with prange("serve.inputs", device=False):
+                toks = np.zeros((self.slots, 1), np.int32)
+                lengths = np.zeros((self.slots,), np.int32)
+                tables = np.full_like(self._tables, scratch)
+                for s in plan.decode_slots:
+                    req = self.slot_req[s]
+                    state = self.sched.slot_state(s)
+                    if req is None or state is None:
+                        raise RuntimeError(
+                            f"step {plan.index}: decode batch includes slot "
+                            f"{s} with no admitted request (statically "
+                            f"detectable as R006)"
+                        )
+                    toks[s, 0] = req.output[-1]
+                    lengths[s] = state.length
+                    tables[s] = self._tables[s]
+                t0 = rec.clock() if rec.enabled else 0.0
+                toks_t = self._tensor(toks)
+                lengths_t = self._tensor(lengths)
+                tables_t = self._tensor(tables)
+            with prange("serve.decode", device=False):
+                logits, self.pool = self._decode(toks_t, lengths_t, tables_t)
+            with prange("serve.readback", device=False):
+                nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+                if rec.enabled:
+                    rec.emit(
+                        f"step{plan.index}/decode[{len(plan.decode_slots)}]",
+                        "chip", t0, rec.clock(), kind="decode",
+                        slots=len(plan.decode_slots),
                     )
-                toks[s, 0] = req.output[-1]
-                lengths[s] = state.length
-                tables[s] = self._tables[s]
-            t0 = rec.clock() if rec.enabled else 0.0
-            logits, self.pool = self._decode(toks, lengths, tables)
-            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
-            if rec.enabled:
-                rec.emit(
-                    f"step{plan.index}/decode[{len(plan.decode_slots)}]",
-                    "chip", t0, rec.clock(), kind="decode",
-                    slots=len(plan.decode_slots),
-                )
-            for s in plan.decode_slots:
-                tok = int(nxt[s])
-                new_tokens[s] = tok
-                if self.eos_id is not None and tok == self.eos_id:
-                    eos_slots.add(s)
+                for s in plan.decode_slots:
+                    tok = int(nxt[s])
+                    new_tokens[s] = tok
+                    if self.eos_id is not None and tok == self.eos_id:
+                        eos_slots.add(s)
 
-        res = self.sched.commit(plan, frozenset(eos_slots))
-        dur = iv.stop()
-        self.sched.advance(dur)
-        t_end = self.sched.clock
-        self.step_log.append(plan.signature())
-        self.step_durations.append(dur)
-        for slot, tok in new_tokens.items():
-            req = self.slot_req[slot]
-            if req is None:
-                raise RuntimeError(
-                    f"step {plan.index}: token produced for slot {slot} "
-                    f"with no admitted request (statically detectable "
-                    f"as R006)"
+        with prange("serve.commit", device=False):
+            res = self.sched.commit(plan, frozenset(eos_slots))
+            dur = iv.stop()
+            self.sched.advance(dur)
+            t_end = self.sched.clock
+            self.step_log.append(plan.signature())
+            self.step_durations.append(dur)
+            for slot, tok in new_tokens.items():
+                req = self.slot_req[slot]
+                if req is None:
+                    raise RuntimeError(
+                        f"step {plan.index}: token produced for slot {slot} "
+                        f"with no admitted request (statically detectable "
+                        f"as R006)"
+                    )
+                req.output.append(tok)
+                req.token_times_s.append(t_end)
+                if len(req.output) == 1:
+                    req.ttft_s = t_end - req.arrival_s
+            for rid in res.finished:
+                req = self.requests[rid]
+                req.done = True
+                req.e2e_s = t_end - req.arrival_s
+                self.finished.append(req)
+                for s, r in enumerate(self.slot_req):
+                    if r is not None and r.rid == rid:
+                        self.slot_req[s] = None
+                        self._tables[s] = scratch
+            if rec.enabled:
+                rec.counter(
+                    "kv_free_blocks", "chip", self.sched.allocator.num_free
                 )
-            req.output.append(tok)
-            req.token_times_s.append(t_end)
-            if len(req.output) == 1:
-                req.ttft_s = t_end - req.arrival_s
-        for rid in res.finished:
-            req = self.requests[rid]
-            req.done = True
-            req.e2e_s = t_end - req.arrival_s
-            self.finished.append(req)
-            for s, r in enumerate(self.slot_req):
-                if r is not None and r.rid == rid:
-                    self.slot_req[s] = None
-                    self._tables[s] = scratch
-        if rec.enabled:
-            rec.counter(
-                "kv_free_blocks", "chip", self.sched.allocator.num_free
-            )
-            rec.counter(
-                "live_slots", "chip",
-                sum(r is not None for r in self.slot_req),
-            )
+                rec.counter(
+                    "live_slots", "chip",
+                    sum(r is not None for r in self.slot_req),
+                )
 
     def run_until_done(self, max_steps: int = 100_000) -> list[Request]:
         steps = 0

@@ -57,6 +57,10 @@ decode.  The logits come back in slot order on the caller's device.
 The write-then-gather order is kept: the chunk's own K/V are in the view it
 attends over.  The gather stays in PyTorch (a kernel that reads through the
 block table is later work).  The pool always stores ``cfg.compute_dtype``.
+
+``torch.profiler`` ranges (``obs.record.prange``): ``paged.kv_gather``
+around each layer's two gathers of the view, ``paged.head`` around the
+head's weight and logits in both functions; the MoE FFN is ``moe.ffn``.
 """
 from __future__ import annotations
 
@@ -66,6 +70,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.sharding import P, shards
 from repro_torch.models.transformer import _ffn, head_weight, layer
+from repro_torch.obs.record import prange
 from repro_torch.serve.policy import ServeConfig
 from repro_torch.tree import tree_map
 
@@ -113,8 +118,9 @@ def _paged_attention(attn_p, h, cfg, pool_k, pool_v, *, positions, write_bi,
     pool_v.index_put_((write_bi, write_off),
                       v.reshape((b * s,) + khd).to(pool_v.dtype))
     view = tables.shape[1] * pool_k.shape[1]
-    k_view = pool_k[tables].reshape((b, view) + khd)
-    v_view = pool_v[tables].reshape((b, view) + khd)
+    with prange("paged.kv_gather"):
+        k_view = pool_k[tables].reshape((b, view) + khd)
+        v_view = pool_v[tables].reshape((b, view) + khd)
     out = L._sdpa(q, k_view, v_view, cfg, q_offset=q_offset, kv_len=kv_len)
     return torch.einsum("bqhk,hkd->bqd", out, attn_p["wo"].to(cdt))
 
@@ -164,8 +170,10 @@ def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
         q_offset=rows, kv_len=torch.full_like(rows, scfg.view_len),
     )
     last = h[:, width - 1:width]
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, last, transpose=transpose), pool
+    with prange("paged.head"):
+        w, transpose = head_weight(params, cfg)
+        logits = L.logits_head(w, last, transpose=transpose)
+    return logits, pool
 
 
 def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
@@ -193,8 +201,10 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
         q_offset=q_offset,
         kv_len=torch.full_like(q_offset, scfg.view_len),
     )
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose), pool
+    with prange("paged.head"):
+        w, transpose = head_weight(params, cfg)
+        logits = L.logits_head(w, h, transpose=transpose)
+    return logits, pool
 
 
 # -- slot sharding ---------------------------------------------------------------

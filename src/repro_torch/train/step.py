@@ -21,18 +21,20 @@ under ``shard_map``; here one process runs each rank of a
 card the ranks share it, so a step's wall time is the ranks' work one after
 another, not a multi-card time.
 
-The step's phases are ``torch.profiler`` ranges (``train_step.forward``,
-``.backward``, ``.optimizer``; the pipeline step's ``train_step.pipeline``
-and ``.reduce``), so a profile of a step says where its device time goes.
+The step's phases are ``torch.profiler`` ranges through
+``obs.record.prange`` (``train_step.forward``, ``.backward``,
+``.optimizer``; the pipeline step's ``train_step.pipeline`` and
+``.reduce``), so a profile of a step says where its device time goes; with
+no profiler running each costs a flag read.
 """
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.models.build import Model
+from repro_torch.obs.record import prange
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 from repro_torch.tree import leaves, tree_map, unflatten_like
 
@@ -129,7 +131,7 @@ def _apply_update(state: TrainState, grads, loss, metrics, comp_state,
                   schedule, optimizer: Optimizer, max_grad_norm: float):
     """The steps' shared tail: clip, optimizer, fp32 add in place."""
     params = state.params
-    with record_function("train_step.optimizer"):
+    with prange("train_step.optimizer"):
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm,
                                            inplace=True)
         lr = schedule(state.step)
@@ -183,9 +185,9 @@ def make_train_step(
 
     def grad_fn(params, microbatch):
         flat = leaves(params)
-        with record_function("train_step.forward"):
+        with prange("train_step.forward"):
             loss, metrics = model.loss(params, microbatch)
-        with record_function("train_step.backward"):
+        with prange("train_step.backward"):
             grads = torch.autograd.grad(loss, flat)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             list(grads)
@@ -250,7 +252,7 @@ def make_train_step(
                 losses.append(l)
                 mets.append(m)
                 rank_grads.append(unflatten_like(params, g))
-        with record_function("train_step.reduce"):
+        with prange("train_step.reduce"):
             if compression is not None:
                 res = [tree_map(lambda x, r=r: x[r], comp_state)
                        for r in range(len(devices))]
@@ -382,7 +384,7 @@ def make_pipeline_train_step(
             f"batch {B} % (dp {dp} * grad_accum {A} * microbatches {M}) "
             "!= 0")
         ce, aux, g_extras, g_rows = [], [], [], []
-        with record_function("train_step.pipeline"):
+        with prange("train_step.pipeline"):
             for d, shard in enumerate(_split_ranks(batch, dp)):
                 chunks = _pp.stage_chunks(blocks, sched, stage_devs[d])
                 split = {k: x.reshape((A, M, -1) + tuple(x.shape[1:]))
@@ -405,7 +407,7 @@ def make_pipeline_train_step(
                 del gch, gf, gl, sums
 
         comp_state = state.comp_state
-        with record_function("train_step.reduce"):
+        with prange("train_step.reduce"):
             devs0 = data_devs[0]
             if compression is not None:
                 res_extras = [tree_map(lambda r, d=d: r[d],

@@ -189,8 +189,9 @@ def test_ranks_on_one_device_share_params_and_pool(model_params):
 
     paged.decode_batch = spy
     try:
-        eng._decode(np.zeros((8, 1), np.int32), np.zeros(8, np.int32),
-                    np.zeros_like(eng._tables))
+        eng._decode(*(eng._tensor(a) for a in (
+            np.zeros((8, 1), np.int32), np.zeros(8, np.int32),
+            np.zeros_like(eng._tables))))
     finally:
         paged.decode_batch = real
     assert seen == [(True, True, 2, True)] * 4
