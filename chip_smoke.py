@@ -83,10 +83,11 @@ Phases, each printing one line of numbers:
              seq 2048, batch 8, grad_accum 4 (the config's), 3 steps; per
              step the loss, host and device ms, tokens/s, peak memory and
              launches, which must be 128 flash attentions (forward and
-             recompute; the gradient is the plain version's VJP) and 260
-             RMSNorms; then one more step under torch.profiler (device time
-             by kind and under the named ranges, the attention VJP's
-             ``repro_torch::flash_attention.backward`` among them);
+             recompute), 64 flash backward calls (the backward kernels) and
+             260 RMSNorms; then one more step under torch.profiler (device
+             time by kind and under the named ranges, the attention
+             gradient's ``repro_torch::flash_attention.backward`` among
+             them);
 10. dense-check — one microbatch of that run's model through the kernel
              against the same microbatch with attention swapped for
              ``attention_ref`` (inside this script only): loss and global
@@ -99,8 +100,9 @@ Phases, each printing one line of numbers:
              whole-sequence prefill (fp32 limit 1e-3 of the logits' scale),
              at a capacity no token overflows on either path;
 12. simtrain rows for ``dense_llama`` at full width on one microbatch (32
-             flash and 65 RMSNorm nodes and launches) and ``moe_qwen3`` at
-             the benchmark's variant (4 and 9); each row's measured step is
+             flash, 16 flash backward and 65 RMSNorm nodes and launches) and
+             ``moe_qwen3`` at the benchmark's variant (4 and 9; its fp32
+             gradient is the plain VJP); each row's measured step is
              the median of 5 steps timed one by one, with their minimum,
              maximum and the card's busy time of one more step;
 13. moe-serve — qwen3-moe-235b-a22b at its published widths (d_model 4096,
@@ -116,15 +118,16 @@ Phases, each printing one line of numbers:
              mamba, MoE 16 experts top-2 on every other layer, 64/8 heads of
              128, d_state 128, vocab 65,536) with d_model cut to 1024 and
              the FFNs to 3072: 3 train steps at seq 2048, batch 4 (2 flash,
-             14 SSD and 33 RMSNorm launches a step asserted, aux > 0), then
+             1 flash backward, 14 SSD and 33 RMSNorm launches a step
+             asserted, aux > 0), then
              a 512-token prefill and 8 decode steps against the whole-
              sequence prefill in fp32 at a capacity no group overflows;
 15. encdec-train — seamless-m4t-large-v2 at its published widths and depth
              (24 + 24 layers, d_model 1024, 16 heads of 64, d_ff 8192, vocab
              256,206, untied head; fp32 master weights, bf16 compute,
              AdamW): seq 2048 with frames of 2048, batch 8, grad_accum 2, 3
-             steps (288 flash and 484 RMSNorm launches a step asserted), and
-             one more step under torch.profiler;
+             steps (288 flash, 144 flash backward and 484 RMSNorm launches
+             a step asserted), and one more step under torch.profiler;
 16. encdec-check — one microbatch through the kernel against
              ``attention_ref``, as phase 10;
 17. encdec-decode — a prefill of ``source_len`` (4096) frames and a 64-token
@@ -304,9 +307,13 @@ Phase 3 also holds flash attention at the train and decode paths' shapes
 (``FLASH_TRAIN``: llama3.2-1b's microbatch in bf16, the moe_qwen3 variant's
 in fp32, jamba's 64/8 heads of 128, seamless-m4t's non-causal encoder and
 cross-attention, its causal decoder and a decode step's cross-attention over
-4096 frames; no masks) against its plain version, prints the bf16 launch
-plan, and runs ``torch.library.opcheck`` on the op on the card.  The kernel
-rows of every path hold their kernel against its plain version again.
+4096 frames; no masks) against its plain version, and the bf16 backward
+kernels' dq, dk and dv at the same shapes (and the qwen3-moe EP step's) and
+at mask edges against the plain VJP in fp32 (``BWD_CASES``); prints the
+bf16 launch plans, and runs ``torch.library.opcheck`` on both ops on the
+card.  The kernel rows of every path hold their kernel against its plain
+version again; the flash rows of the train paths also time the backward
+kernels beside their bound and the plain VJP.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
 outside the repository, the script exits non-zero and prints no result.
@@ -466,6 +473,29 @@ FLASH_TRAIN = {"dense-train": ((2, 2048, 2048, 32, 8, 64), torch.bfloat16,
                                       torch.bfloat16, ATTN_BF16_TOL, True),
                "bench-exec": ((2, 16, 16, 2, 2, 32), torch.float32, FP32_TOL,
                               True)}
+# the bf16 backward kernels against the plain VJP in fp32 on the same values,
+# at the forward's bf16 tolerance: the train paths' shapes (``FLASH_TRAIN``
+# names), then (label, (B, Sq, Skv, H, K, D), causal, q_offset, kv_len) at
+# the masks' edges (K/V past kv_len large), head dims 32 and 128, GQA 16,
+# and rows that see no key (q_offset < 0, kv_len 0)
+BWD_TRAIN = ("encdec-train-encoder-cross", "encdec-train-decoder-self",
+             "dense-train", "jamba-train", "ep-train")
+BWD_CASES = [
+    ("prefill 2x64 vs 512 H32/K8 kv_len < view", (2, 64, 512, 32, 8, 64),
+     True, [100, 400], [130, 450]),
+    ("non-causal 2x40x300 H8/K2 kv_len < view", (2, 40, 300, 8, 2, 64),
+     False, None, [77, 300]),
+    ("no key: q_offset -40, kv_len 0", (2, 100, 300, 8, 2, 64), True,
+     [-40, 200], [300, 0]),
+    ("D32 2x100 vs 300 H8/K2", (2, 100, 300, 8, 2, 32), True, [200, 0],
+     [300, 100]),
+    ("D128 GQA 16 2x100 vs 300 H32/K2", (2, 100, 300, 32, 2, 128), True,
+     [200, 0], [300, 100]),
+    ("non-causal 2x300 vs 2048 H16/K16", (2, 300, 2048, 16, 16, 64), False,
+     None, None),
+    ("MHA causal 1x40x200 H4/K4", (1, 40, 200, 4, 4, 64), True, [160],
+     None),
+]
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
 # layers (every layer is MoE, so one whole period), through the llama serve
 # phase's engine, trace and twin; then two of the trace's requests prefilled
@@ -736,20 +766,76 @@ def attention_cases(dev) -> list:
 
 
 def flash_opcheck(dev, gen, failures: list) -> str:
-    """``torch.library.opcheck`` of the flash-attention op on one small bf16
-    case on the card (schema, fake implementation, autograd registration,
-    AOT dispatch)."""
+    """``torch.library.opcheck`` of the flash-attention op and of its
+    backward op on one small bf16 case on the card (schema, fake
+    implementation, autograd registration, AOT dispatch)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     q, k, v = (torch.randn(2, 128, n, 64, generator=gen, device=dev).to(
         torch.bfloat16).requires_grad_() for n in (8, 2, 2))
-    try:
-        torch.library.opcheck(fa_ops._flash_op,
-                              (q, k, v, True, None, None, 0.125))
-    except Exception as e:  # opcheck's OpCheckError names the failed check
-        failures.append(f"opcheck of repro_torch::flash_attention: {e}")
-        return "failed"
+    do = torch.randn(2, 128, 8, 64, generator=gen, device=dev).to(
+        torch.bfloat16)
+    for op, args in ((fa_ops._flash_op, (q, k, v, True, None, None, 0.125)),
+                     (fa_ops._flash_bwd_op,
+                      (q.detach(), k.detach(), v.detach(), do, True, None,
+                       None, 0.125))):
+        try:
+            torch.library.opcheck(op, args)
+        except Exception as e:  # OpCheckError names the failed check
+            failures.append(f"opcheck of {op._name}: {e}")
+            return "failed"
     return "passed"
+
+
+def attention_grads(fn, q, k, v, do, **kw) -> tuple:
+    """dq, dk, dv of ``fn(q, k, v, **kw)`` (the flash op, whose bf16
+    gradient is the backward kernels, or ``attention_ref``) for the output
+    gradient ``do``."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*leaves, **kw), leaves, do)
+
+
+def bwd_check(dev, gen, label, shape, causal, qo, kl, failures) -> dict:
+    """One bf16 call's dq, dk and dv through the flash op's gradient (one
+    backward launch) against the plain VJP in fp32 on the same values
+    (``attention_ref`` of the upcast inputs): the kernels round each
+    gradient to bf16 once, as ``attention_plain`` holds the forward."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, skv, h, kh, d = shape
+
+    def rand(*s):
+        return torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, do = rand(b, sq, h, d), rand(b, sq, h, d)
+    k, v = rand(b, skv, kh, d), rand(b, skv, kh, d)
+    if kl is not None:
+        for i, n in enumerate(kl):
+            k[i, n:] = PAST_KV_LEN
+            v[i, n:] = PAST_KV_LEN
+    kw = dict(causal=causal,
+              q_offset=None if qo is None else torch.tensor(
+                  qo, dtype=torch.int32, device=dev),
+              kv_len=None if kl is None else torch.tensor(
+                  kl, dtype=torch.int32, device=dev))
+    n0 = fa_ops.BWD_LAUNCHES.count
+    got = attention_grads(fa_ops.flash_attention, q, k, v, do, **kw)
+    launched = fa_ops.BWD_LAUNCHES.count - n0
+    want = attention_grads(attention_ref, q.float(), k.float(), v.float(),
+                           do.float(), **kw)
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = max_err(a, w)
+        if a.dtype != torch.bfloat16 or not close(a, w, ATTN_BF16_TOL):
+            failures.append(f"flash backward {label} {name}: {a.dtype}, max "
+                            f"abs err {errs[name]:.3g} over tolerance "
+                            f"{ATTN_BF16_TOL}")
+    if launched != 1:
+        failures.append(f"flash backward {label}: {launched} backward "
+                        "launches, expected 1")
+    return errs
 
 
 def check_kernels(dev, gen, failures: list) -> None:
@@ -768,7 +854,7 @@ def check_kernels(dev, gen, failures: list) -> None:
     def rows(vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
 
-    results, rms_paths = [], {}
+    results, rms_paths, worst = [], {}, {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
         dt_name = "bf16" if dtype == torch.bfloat16 else "fp32"
         for n, d, want in RMS_CASES:
@@ -824,11 +910,25 @@ def check_kernels(dev, gen, failures: list) -> None:
                         attention_plain(q, k, v, causal=causal), tol,
                         f"attention {dt_name}"))
         del q, k, v
+    # the backward kernels at the train shapes and the masks' edges; a
+    # second call at the seamless shape must give the same bits
+    bwd_errs = {}
+    for label in BWD_TRAIN:
+        (b, sq, skv, h, kh, d), _, _, causal = FLASH_TRAIN[label]
+        bwd_errs[label] = bwd_check(dev, gen, label, (b, sq, skv, h, kh, d),
+                                    causal, None, None, failures)
+    for label, shape, causal, qo, kl in BWD_CASES:
+        bwd_errs[label] = bwd_check(dev, gen, label, shape, causal, qo, kl,
+                                    failures)
+    bwd_same = bwd_repeat_same(dev, gen)
+    if not bwd_same:
+        failures.append("flash backward: two calls gave different bits")
+    worst["attention bwd bf16"] = max(max(e.values())
+                                      for e in bwd_errs.values())
     b, s, _, h, kh, d = FLASH_TRAIN["dense-train"][0]
     plan = launch_plan(b, s, s, h, kh, d, sm_count(dev.index))
     opcheck = flash_opcheck(dev, gen, failures)
     torch.cuda.synchronize()
-    worst = {}
     for label, out, ref, tol, key in results:
         err = max_err(out, ref)
         worst[key] = max(worst.get(key, 0.0), err)
@@ -841,14 +941,33 @@ def check_kernels(dev, gen, failures: list) -> None:
                             "keys_mode": plan.split_keys,
                             "row_tiles": plan.row_tiles,
                             "splits": plan.splits},
-          flash_opcheck=opcheck,
+          flash_opcheck=opcheck, flash_bwd_max_abs_err=bwd_errs,
+          flash_bwd_bit_identical=bwd_same,
           tolerance={"rmsnorm bf16": BF16_TOL, "attention bf16": ATTN_BF16_TOL,
+                     "attention bwd bf16 (vs the fp32 plain VJP)":
+                         ATTN_BF16_TOL,
                      "rmsnorm/attention fp32": FP32_TOL,
                      "ssd_scan bf16": SSD_BF16_TOL,
                      "ssd_scan fp32": SSD_FP32_TOL,
                      "ssd_scan kernels 1 (states) and 3": SSD_BF16_TOL,
                      "ssd_scan kernel 1 (cum, decay) and 2": SSD_FP32_TOL},
           tf32=False)
+
+
+def bwd_repeat_same(dev, gen) -> bool:
+    """Two backward calls at the seamless train shape give the same bits
+    (the kernels use no atomics)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    (b, sq, skv, h, kh, d), _, _, causal = FLASH_TRAIN[
+        "encdec-train-decoder-self"]
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, skv, kh, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    args = (q, k, v, do, causal, None, None, 1 / math.sqrt(d))
+    one, two = fa_ops._flash_bwd_op(*args), fa_ops._flash_bwd_op(*args)
+    return all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def ssd_stage_checks(dev, gen) -> list:
@@ -1612,11 +1731,13 @@ def rmsnorm_row(dev, gen, chip, name: str, shape: tuple, eps: float,
 
 
 def flash_train_row(dev, gen, chip, name: str, launches, per_step,
-                    failures: list) -> dict:
+                    failures: list, bwd=None) -> dict:
     """Flash attention at a path's shape (``FLASH_TRAIN``), no masks, as
     ``layers.attention`` calls it (causal, or non-causal for the encoder and
     the cross-attention); held against its plain version, timed beside SDPA
-    (``is_causal`` as the row, GQA)."""
+    (``is_causal`` as the row, GQA).  ``bwd``: the path's (backward
+    launches, launches a step), or (None, None) where no path was driven,
+    for a row that also times the bf16 backward kernels (``backward``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import cost as fa_cost
@@ -1667,9 +1788,74 @@ def flash_train_row(dev, gen, chip, name: str, launches, per_step,
                        "row_tiles": plan.row_tiles, "splits": plan.splits,
                        "grid": [plan.row_tiles, b * kh, plan.splits],
                        "combine": plan.splits > 1}
+        if bwd is not None:
+            row["backward"] = flash_bwd_row(dev, gen, chip, name, q, k, v,
+                                            causal, bwd, failures)
     else:
         row["body"] = "fp32 CUDA-core kernel (flash_f32_kernel)"
     return row
+
+
+def sdpa_bwd_ms(F, q, k, v, do, causal) -> float:
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, leaves, dot)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def flash_bwd_row(dev, gen, chip, name: str, q, k, v, causal, bwd,
+                  failures: list) -> dict:
+    """The bf16 backward kernels at a train path's shape: dq, dk and dv
+    against the plain VJP in fp32 (``bwd_check``, on inputs of its own),
+    the kernels' time beside their bound (``backward_cost``: 2.5 times the
+    forward's operations), the plain VJP's (``attention_ref``'s gradient on
+    the bf16 inputs, the op's gradient before the kernels) and SDPA's
+    backward (its forward and backward less its forward; the port never
+    calls it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    errs = bwd_check(dev, gen, f"@{name}", (b, sq, skv, h, kh, d), causal,
+                     None, None, failures)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    args = (q, k, v, do, causal, None, None, 1 / math.sqrt(d))
+    ops_, nbytes = fa_ops.backward_cost(q, k, v, do, causal)
+    bms, by = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+    plan = fa_ops.backward_plan(b, sq, skv, h, kh, d)
+    return {
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": None,
+        "kernels": ["flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"],
+        "launches": bwd[0], "launches_per_step": bwd[1],
+        "max_abs_err": errs, "tolerance": ATTN_BF16_TOL,
+        "ms": cuda_ms(lambda: fa_ops._flash_bwd_op(*args)),
+        "bound_ms": bms, "bound_by": by,
+        "plain_ms": cuda_ms(lambda: attention_grads(attention_ref, q, k, v,
+                                                    do, causal=causal),
+                            iters=3, warmup=1),
+        "plain": "attention_ref's VJP on the bf16 inputs",
+        "library_ms": sdpa_bwd_ms(F, q, k, v, do, causal),
+        "library": f"torch.nn.functional.scaled_dot_product_attention "
+                   f"(is_causal={causal}, enable_gqa): forward and backward "
+                   f"less the forward",
+        "plan": {"dq_grid": list(plan.dq_grid),
+                 "dkdv_grid": list(plan.dkdv_grid), "tile": plan.tile,
+                 "scratch": list(plan.scratch)}}
 
 
 # -- phases 6 and 9: train at full width ----------------------------------------
@@ -1680,8 +1866,10 @@ def train_launches(cfg, grad_accum: int) -> dict:
     mixers (SSD scan or flash attention) and block norms in the forward
     pass, again in the backward pass where the layer is recomputed (remat),
     and the final norms once (the decoder's, and the encoder's in the
-    encoder-decoder).  The gradients of all three ops are the plain
-    versions' VJPs and launch no kernel."""
+    encoder-decoder).  The gradients of the SSD scan and RMSNorm are the
+    plain versions' VJPs and launch no kernel; flash attention's launches
+    the backward kernels once an attention call in bf16 compute
+    (``flash_attention_bwd``) and is the plain VJP in fp32."""
     from repro_torch.models.hybrid import _n_superblocks, _sublayer_kinds
 
     passes = 1 if cfg.remat_policy == "none" else 2
@@ -1700,9 +1888,11 @@ def train_launches(cfg, grad_accum: int) -> dict:
         attn, ssd, norms, finals = 0, cfg.num_layers, cfg.num_layers, 1
     else:
         attn, ssd, norms, finals = cfg.num_layers, 0, 2 * cfg.num_layers, 1
+    bwd = attn if cfg.compute_dtype == "bfloat16" else 0
     return {"ssd_scan": passes * ssd * grad_accum,
             "flash_attention": passes * attn * grad_accum,
-            "rmsnorm": (passes * norms + finals) * grad_accum}
+            "rmsnorm": (passes * norms + finals) * grad_accum,
+            "flash_attention_bwd": bwd * grad_accum}
 
 
 def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
@@ -1728,6 +1918,14 @@ def kernel_counters() -> dict:
             "flash_attention": fa_ops.LAUNCHES}
 
 
+def train_counters() -> dict:
+    """``kernel_counters`` and the flash backward kernels' counter, for the
+    paths that train."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    return dict(kernel_counters(), flash_attention_bwd=fa_ops.BWD_LAUNCHES)
+
+
 def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
     """``run["steps"]`` steps of ``launch.train.train`` on ``cfg`` (over
     ``run["ranks"]`` logical ranks where the run names them); per step the
@@ -1738,7 +1936,7 @@ def train_phase(dev, failures: list, cfg, run: dict, tag: str) -> dict:
     from repro_torch.tree import leaves
 
     want = train_launches(cfg, run["grad_accum"])
-    counters = kernel_counters()
+    counters = train_counters()
     steps = []
     seen = {k: 0 for k in counters}
 
@@ -2041,6 +2239,7 @@ def decode_launches(cfg, prefills: int, steps: int) -> dict:
     state update); an encoder-decoder's decode step runs the decoder
     alone."""
     one = train_launches(dataclasses.replace(cfg, remat_policy="none"), 1)
+    one.pop("flash_attention_bwd")        # no backward
     step = dict(one, ssd_scan=0)
     if cfg.family == "audio":
         step.update(flash_attention=2 * cfg.num_layers,
@@ -2141,7 +2340,8 @@ def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
         "jamba-train")
     rows.append(flash_train_row(
         dev, gen, chip, "jamba-train",
-        *counts("jamba", "flash_attention", JAMBA["steps"]), failures))
+        *counts("jamba", "flash_attention", JAMBA["steps"]), failures,
+        bwd=counts("jamba", "flash_attention_bwd", JAMBA["steps"])))
     b = ENCDEC["batch"] // ENCDEC["grad_accum"]
     rows.append(rmsnorm_row(
         dev, gen, chip, "rmsnorm@encdec-train",
@@ -2150,7 +2350,8 @@ def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     for name in ("encdec-train-encoder-cross", "encdec-train-decoder-self"):
         rows.append(flash_train_row(
             dev, gen, chip, name,
-            *counts("encdec", "flash_attention", ENCDEC["steps"]), failures))
+            *counts("encdec", "flash_attention", ENCDEC["steps"]), failures,
+            bwd=counts("encdec", "flash_attention_bwd", ENCDEC["steps"])))
     rows.append(flash_train_row(
         dev, gen, chip, "encdec-decode-cross",
         *counts("encdec_decode", "flash_attention", 1), failures))
@@ -2204,7 +2405,8 @@ def dense_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
                     failures),
         flash_train_row(dev, gen, chip, "dense-train",
                         *counts("dense", "flash_attention", DENSE["steps"]),
-                        failures),
+                        failures, bwd=counts("dense", "flash_attention_bwd",
+                                             DENSE["steps"])),
         flash_train_row(dev, gen, chip, "moe_qwen3",
                         *counts("moe", "flash_attention", MOE["steps"]),
                         failures)]
@@ -2303,9 +2505,9 @@ def pp_train_phase(dev, failures: list) -> dict:
     ``launch.train.train`` on 4 logical ranks of the one card, pp=2 x dp=2,
     1F1B, int8 compression with error feedback: ``PP["steps"]`` steps (the
     first a warm-up); per step the loss, host and device ms, tokens/s, peak
-    memory and launches, which must be 256 flash attentions and 520
-    RMSNorms; the launcher's own plan and parity lines; and the bytes the
-    executor moved (hops, int8 payloads)."""
+    memory and launches, which must be 256 flash attentions, 128 flash
+    backward calls and 520 RMSNorms; the launcher's own plan and parity
+    lines; and the bytes the executor moved (hops, int8 payloads)."""
     from repro_torch.configs.base import get_config
     from repro_torch.dist import mesh as M
     from repro_torch.launch.train import train
@@ -2313,7 +2515,7 @@ def pp_train_phase(dev, failures: list) -> dict:
     cfg = get_config(DENSE_ARCH)
     want = train_launches(cfg, grad_accum=PP["dp"] * PP["microbatches"])
     want = {k: v for k, v in want.items() if k != "ssd_scan"}
-    counters = {k: c for k, c in kernel_counters().items()
+    counters = {k: c for k, c in train_counters().items()
                 if k in want}
     steps, logs, seen = [], [], {k: 0 for k in counters}
 
@@ -2701,7 +2903,9 @@ def pp_kernel_table(dev, gen, platform, launches, failures: list) -> list:
                     failures),
         flash_train_row(dev, gen, chip, "pp-train",
                         launches["flash_attention"],
-                        launches["flash_attention"] / steps, failures)]
+                        launches["flash_attention"] / steps, failures,
+                        bwd=(launches["flash_attention_bwd"],
+                             launches["flash_attention_bwd"] / steps))]
 
 
 def pp_phases(dev, gen, platform, db, failures: list) -> list:
@@ -3017,7 +3221,9 @@ def ep_kernel_table(dev, gen, platform, launches, failures: list) -> list:
                     failures),
         flash_train_row(dev, gen, chip, "ep-train",
                         launches["flash_attention"],
-                        launches["flash_attention"] / steps, failures)]
+                        launches["flash_attention"] / steps, failures,
+                        bwd=(launches["flash_attention_bwd"],
+                             launches["flash_attention_bwd"] / steps))]
 
 
 def ep_phases(dev, gen, platform, db, failures: list) -> list:
@@ -3399,7 +3605,7 @@ def ckpt_run(dev, cfg, tag: str, steps: int, failures: list, ckpt_dir=None,
     from repro_torch.launch.train import train
 
     want = train_launches(cfg, CKPT["grad_accum"])
-    counters = counters or kernel_counters()
+    counters = counters or train_counters()
     seen = {k: c.count for k, c in counters.items()}
     steps_out, events, logs = [], [], []
 
@@ -3457,7 +3663,7 @@ def ckpt_phase(dev, failures: list) -> dict:
                         f"the {free} bytes free under {base}")
         phase("ckpt", ok=False, checkpoint_bytes=need, free_bytes=free)
         return {"launches": None}
-    counters = kernel_counters()
+    counters = train_counters()
     root = tempfile.mkdtemp(prefix="ckpt-", dir=base)
     try:
         # the main path: counts from zero before A, read right after B
@@ -4231,7 +4437,7 @@ def dryrun_check_phase(dev, recs: dict, failures: list) -> dict:
 
     cfg = get_config(DENSE_ARCH)
     mesh = Mesh(("data", "model"), (1, 1), (torch.device("meta"),))
-    counters = kernel_counters()
+    counters = train_counters()
     launches = {}
     for kind in ("train", "decode"):
         rec = recs.get(f"check|{kind}")
@@ -4474,6 +4680,8 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
         "launches": None, "ptxas": ptxas}, failures)
     table += dense_kernel_table(dev, gen, {
         "platform": platform, "dense": None, "moe": None}, failures)
+    table.append(flash_train_row(dev, gen, platform.chip, "ep-train", None,
+                                 None, failures, bwd=(None, None)))
     return table + new_path_kernel_table(dev, gen, {
         "platform": platform, "ptxas": ptxas, "jamba": None, "encdec": None,
         "encdec_decode": None}, failures)

@@ -23,13 +23,14 @@ the estimator maps (``core/estimator.py``):
 * everything else -> ``elementwise`` (transcendentals count 7 operations
   an element, as in the JAX package's HLO costing);
 * each hand-written kernel op (``repro_torch::ssd_scan``,
-  ``repro_torch::rmsnorm``, ``repro_torch::flash_attention``) -> one
-  ``custom-call`` node, the analog of one ``pallas_call``, with
+  ``repro_torch::rmsnorm``, ``repro_torch::flash_attention``, and
+  ``repro_torch::flash_attention_bwd``, the flash op's gradient for bf16
+  CUDA tensors) -> one ``custom-call`` node, the analog of one ``pallas_call``, with
   ``meta["kernel"]`` its name, its operations and bytes from the op's own
   ``cost`` (the bound ``chip_smoke.py`` reports), and ``meta["call"]`` the
   argument specs the new-op profiler replays (a ``None`` mask stays
-  ``None``).  The ops' backward passes are their plain versions' VJPs,
-  traced as ATen ops.
+  ``None``).  The other backward passes (and the flash op's in fp32 or on
+  the CPU) are their plain versions' VJPs, traced as ATen ops.
 
 Flops are counted as in the JAX package's parser: 2 per multiply-add of a
 contraction, one per output element elsewhere.  Bytes are the tensors an op
@@ -54,7 +55,8 @@ from repro_torch.tree import leaves, tree_map, unflatten_like
 # the port's kernel ops and their costs (operations, bytes), each called
 # with the op's own positional arguments
 KERNEL_COSTS = {"ssd_scan": ssd_ops.cost, "rmsnorm": rms_ops.cost,
-                "flash_attention": fa_ops.cost}
+                "flash_attention": fa_ops.cost,
+                "flash_attention_bwd": fa_ops.backward_cost}
 
 _VIEWS = {
     "view", "_unsafe_view", "reshape", "permute", "transpose", "t",

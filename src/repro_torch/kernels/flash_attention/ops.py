@@ -10,10 +10,14 @@ through :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`; CUDA
 tensors launch the kernel or raise.
 
 The op is ``torch.library.custom_op("repro_torch::flash_attention")``: one
-node of a traced graph per launch, a fake implementation for shapes, and a
-gradient that is the plain version's VJP recomputed from the saved q, k and
-v, as the JAX package's ``custom_vjp`` recomputes ``attention_ref`` (there
-is no backward kernel on either side).
+node of a traced graph per launch and a fake implementation for shapes.  Its
+gradient, from the saved q, k and v, dispatches on what it is given: bf16
+CUDA tensors go to the backward kernels (``csrc/flash_attention_bwd.cu``),
+through a second op, ``repro_torch::flash_attention_bwd`` (one node of a
+traced backward, counted by ``BWD_LAUNCHES``); fp32 CUDA tensors and every
+CPU tensor take the plain version's VJP, recomputing ``attention_ref`` as
+the JAX package's ``custom_vjp`` does (the JAX package has no backward
+kernel).
 
 In bf16 the kernel packs each GQA group into one block's rows and splits the
 KV sweep across blocks; :func:`launch_plan` chooses the layout and the number
@@ -32,9 +36,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref,
+)
 
 LAUNCHES = _build.LaunchCounter("flash_attention")
+# backward calls that launched the backward kernels
+BWD_LAUNCHES = _build.LaunchCounter("flash_attention_bwd")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 _F32_BLOCK_Q = 16                   # fp32 body: query rows per block
@@ -89,6 +97,55 @@ def smem_bytes(d: int) -> int:
     return 2 * STAGES * BLOCK_N * (d + 8) * 2
 
 
+BWD_BLOCK_M = 64        # csrc kRowsDq: packed rows a dq block, the scratch's padding
+BWD_KEYS = 64           # csrc kKeysDkdv: keys a dK/dV block
+BWD_STAGES = 2          # csrc kStages of the backward's cp.async rings
+BWD_THREADS = 128       # four warps a block, each of 16 rows or keys
+
+
+def bwd_tile(d: int) -> int:
+    """The dq kernel's key tile and the dK/dV kernel's row tile (csrc
+    ``tile_of``): 64, or 32 at D = 128."""
+    return 64 if d <= 64 else 32
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How the backward kernels cut one bf16 call: ``rows_pad`` the packed
+    rows (Sq * H / K) of a (batch, KV head) rounded up to ``BWD_BLOCK_M``;
+    the dq kernel's grid (row tiles, B * K) and the dK/dV kernel's (key
+    tiles, B * K); ``tile`` their key and row tiles; ``scratch`` the fp32
+    LSE and D, (2, B * K * rows_pad); each kernel's dynamic shared memory
+    (bytes) and ``held_regs``, the accumulator and fragment registers a
+    thread of either kernel holds through its loop (tile + D)."""
+    rows_pad: int
+    dq_grid: tuple
+    dkdv_grid: tuple
+    tile: int
+    scratch: tuple
+    dq_smem: int
+    dkdv_smem: int
+    held_regs: int
+
+
+def backward_plan(b: int, sq: int, skv: int, h: int, kh: int,
+                  d: int) -> BackwardPlan:
+    """The backward kernels' plan: a pure function of shapes (the C side
+    sizes its launches the same way, from ``rows_pad``)."""
+    rows_pad = -(-sq * (h // kh) // BWD_BLOCK_M) * BWD_BLOCK_M
+    tile, stride = bwd_tile(d), (d + 8) * 2
+    return BackwardPlan(
+        rows_pad=rows_pad,
+        dq_grid=(rows_pad // BWD_BLOCK_M, b * kh),
+        dkdv_grid=(-(-skv // BWD_KEYS), b * kh),
+        tile=tile,
+        scratch=(2, b * kh * rows_pad),
+        dq_smem=BWD_STAGES * 2 * tile * stride,
+        dkdv_smem=(2 * BWD_KEYS * stride
+                   + BWD_STAGES * (2 * tile * stride + 2 * tile * 4)),
+        held_regs=tile + d)
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -102,6 +159,18 @@ def _lib():
         c_void_p, c_int = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = ([c_void_p] * 7 + [c_int] * 7
                        + [ctypes.c_float, c_int, c_int, c_int, c_void_p])
+        fn.restype = c_int
+    return fn
+
+
+def _bwd_lib():
+    import ctypes
+
+    fn = _build.load("flash_attention").flash_attention_bwd
+    if fn.argtypes is None:
+        c_void_p, c_int = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([c_void_p] * 10 + [c_int] * 7
+                       + [ctypes.c_float, c_int, c_void_p])
         fn.restype = c_int
     return fn
 
@@ -156,6 +225,48 @@ def _kernel(q, k, v, causal, q_offset, kv_len, scale) -> torch.Tensor:
     return o
 
 
+def _kernel_backward(q, k, v, g, causal, q_offset, kv_len, scale):
+    """(dq, dk, dv) of one bf16 call from the backward kernels."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, g)):
+        raise TypeError(f"flash attention backward kernel: dtypes {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}, {g.dtype}; bf16 only")
+    if any(t.device != q.device for t in (k, v, g)):
+        raise ValueError("flash attention backward kernel: tensors on "
+                         "different devices")
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or h % kh
+            or g.shape != q.shape):
+        raise ValueError(f"flash attention backward kernel: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, grad {tuple(g.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention backward kernel: head_dim {d} not "
+                         f"in {HEAD_DIMS}")
+    if b * kh > 65535:
+        raise ValueError(f"flash attention backward kernel: B * K {b * kh} "
+                         "too large")
+    if q.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v))
+    qo = _rows(q_offset, "q_offset", b, q.device)
+    kl = _rows(kv_len, "kv_len", b, q.device)
+    fn = _bwd_lib()
+    plan = backward_plan(b, sq, skv, h, kh, d)
+    q, k, v, g = (_aligned(t) for t in (q, k, v, g))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             None if qo is None else qo.data_ptr(),
+             None if kl is None else kl.data_ptr(), scratch.data_ptr(),
+             b, sq, skv, h, kh, d, int(causal), float(scale), plan.rows_pad,
+             stream)
+    _build.check(err, "flash_attention_bwd")
+    BWD_LAUNCHES.count += 1
+    return dq, dk, dv
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """Contiguous, at a 16-byte aligned address (the kernel's cp.async)."""
     t = t.contiguous()
@@ -200,6 +311,22 @@ def cost(q, k, v, causal: bool, q_offset=None, kv_len=None, sm_scale=None
     return float(4 * h * d * seen), float(nbytes)
 
 
+def backward_cost(q, k, v, dout, causal: bool, q_offset=None, kv_len=None,
+                  sm_scale=None) -> tuple[float, float]:
+    """(operations, bytes) of one backward call: the least work.
+
+    Operations: S = q k^T, dP = do v^T, dq, dk and dv, five products where
+    the forward has two (2.5 times :func:`cost`'s).  Bytes: the forward's
+    reads (q, the keys' K and V, the masks), do read in place of the output
+    written, and dq, dk and dv written.  The bound in ``chip_smoke.py`` and
+    the cost of a ``repro_torch::flash_attention_bwd`` node."""
+    ops, nbytes = cost(q, k, v, causal, q_offset, kv_len, sm_scale)
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    out = (b * sq * h * d + 2 * b * skv * kh * d) * q.element_size()
+    return 2.5 * ops, nbytes + float(out)
+
+
 def _impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
           q_offset: Optional[torch.Tensor], kv_len: Optional[torch.Tensor],
           sm_scale: float) -> torch.Tensor:
@@ -221,6 +348,33 @@ def _(q, k, v, causal, q_offset, kv_len, sm_scale):
     return q.new_empty(q.shape)
 
 
+def _bwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              dout: torch.Tensor, causal: bool,
+              q_offset: Optional[torch.Tensor], kv_len: Optional[torch.Tensor],
+              sm_scale: float) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    if q.device.type == "cpu":
+        grads = attention_bwd_ref(q, k, v, dout, causal=causal,
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  sm_scale=sm_scale)
+        # contiguous, as the kernels' outputs (and the fake's)
+        return tuple(gr.to(t.dtype).contiguous()
+                     for gr, t in zip(grads, (q, k, v)))
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention backward: no kernel for device "
+                         f"{q.device}")
+    return _kernel_backward(q, k, v, dout, causal, q_offset, kv_len, sm_scale)
+
+
+_flash_bwd_op = torch.library.custom_op("repro_torch::flash_attention_bwd",
+                                        mutates_args=())(_bwd_impl)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, dout, causal, q_offset, kv_len, sm_scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
 def _setup(ctx, inputs, output):
     q, k, v, causal, q_offset, kv_len, sm_scale = inputs
     ctx.causal, ctx.sm_scale = causal, sm_scale
@@ -232,14 +386,20 @@ def _backward(ctx, g):
     from repro_torch.obs.record import prange
 
     q, k, v, q_offset, kv_len = ctx.saved_tensors
-    with torch.enable_grad(), prange(
-            "repro_torch::flash_attention.backward"):
-        leaves = [t.detach().requires_grad_(need)
-                  for t, need in zip((q, k, v), ctx.needs_input_grad)]
-        o = attention_ref(*leaves, causal=ctx.causal, q_offset=q_offset,
-                          kv_len=kv_len, sm_scale=ctx.sm_scale)
-        want = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(o, want, g))
+    need = ctx.needs_input_grad[:3]
+    with prange("repro_torch::flash_attention.backward"):
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            grads = _flash_bwd_op(q, k, v, g, ctx.causal, q_offset, kv_len,
+                                  ctx.sm_scale)
+            return (*(gr if n else None for gr, n in zip(grads, need)),
+                    None, None, None, None)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n)
+                      for t, n in zip((q, k, v), need)]
+            o = attention_ref(*leaves, causal=ctx.causal, q_offset=q_offset,
+                              kv_len=kv_len, sm_scale=ctx.sm_scale)
+            want = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(o, want, g))
     return (*(next(grads) if t.requires_grad else None for t in leaves),
             None, None, None, None)
 

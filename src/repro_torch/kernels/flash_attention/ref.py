@@ -94,3 +94,42 @@ def combine_ref(m: torch.Tensor, l: torch.Tensor,
     lsum = (w * l).sum(dim=0)
     out = (w[..., None] * acc).sum(dim=0)
     return out / lsum.clamp_min(1e-30)[..., None]
+
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, *, causal: bool = True,
+                      q_offset: Optional[torch.Tensor] = None,
+                      kv_len: Optional[torch.Tensor] = None,
+                      sm_scale: Optional[float] = None):
+    """The plain version of the backward kernels: the gradient of
+    :func:`attention_ref` in q, k and v, computed as the kernels compute it.
+
+    do is the output's gradient, (B, Sq, H, D).  Per query row: LSE, the
+    log-sum-exp of the visible scaled scores s; P = exp(s - LSE); dP = do
+    v^T; D = rowsum(P * dP); dS = P (dP - D).  Then dq = scale dS k, and dk
+    = scale dS^T q and dv = P^T do, each summed over the heads of a GQA
+    group.  D is rowsum(P * dP), as the plain VJP's softmax backward takes
+    it, and not rowsum(do * o) from the forward's bf16 output, whose
+    rounding moves bf16 gradients past the kernels' check.  A row that sees
+    no key has P = 0: it adds nothing and its dq is zero.  Returns fp32
+    (dq, dk, dv) in the shapes of q, k and v; arithmetic in fp32."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kr, vr = (t.float().repeat_interleave(g, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    mask = attention_mask(b, sq, skv, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len, device=q.device)[:, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse) * mask.any(dim=-1, keepdim=True)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return (dq, dk.reshape(b, skv, kh, g, d).sum(dim=3),
+            dv.reshape(b, skv, kh, g, d).sum(dim=3))

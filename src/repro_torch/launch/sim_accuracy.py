@@ -244,7 +244,8 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     state, _ = step(state, batch_t)           # warm-up (first-call costs)
     synchronize(dev)
     counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
-                "flash_attention": fa_ops.LAUNCHES}
+                "flash_attention": fa_ops.LAUNCHES,
+                "flash_attention_bwd": fa_ops.BWD_LAUNCHES}
     before = {k: c.count for k, c in counters.items()}
     wall, events = [], []
     for _ in range(steps):

@@ -28,7 +28,8 @@ single parity percentage.  Three pieces:
   over tolerance).
 
 :func:`~repro_torch.obs.record.prange` names a stretch of the program
-for ``torch.profiler``: the train step's phases, the plain VJPs, the paged
+for ``torch.profiler``: the train step's phases, the kernel ops'
+gradients (plain VJPs, and flash attention's backward kernels), the paged
 forward's gathers and head and the MoE FFN as host events with device-side
 ranges, the serve engine's host loop as host events alone.  It costs a
 flag read when no profiler runs.

@@ -355,7 +355,8 @@ def test_flash_op_at_the_train_shape_matches_plain_version(dev, dtype, tol):
 
 
 def test_flash_gradient_on_card_matches_plain_vjp(dev):
-    """The op's gradient is the plain version's VJP: on the card it equals
+    """In fp32 the op's gradient keeps the plain version's VJP (only bf16
+    CUDA tensors go to the backward kernels): on the card it equals
     ``attention_ref``'s own gradient there and the CPU's; the backward
     launches no kernel."""
     from repro_torch.kernels.flash_attention import ops as fa
@@ -372,10 +373,10 @@ def test_flash_gradient_on_card_matches_plain_vjp(dev):
                              ("plain", dev, attention_ref)):
         ins = [t.to(device).requires_grad_() for t in cpu]
         out = fn(*ins, causal=True)
-        n0 = fa.LAUNCHES.count
+        n0, b0 = fa.LAUNCHES.count, fa.BWD_LAUNCHES.count
         grads[name] = [g.cpu() for g in torch.autograd.grad(
             out, ins, gout.to(device))]
-        assert fa.LAUNCHES.count == n0
+        assert (fa.LAUNCHES.count, fa.BWD_LAUNCHES.count) == (n0, b0)
     for a, b, c in zip(grads["op"], grads["plain"], grads["cpu"]):
         torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(a, c, rtol=2e-5, atol=2e-5)
@@ -388,13 +389,98 @@ def test_flash_opcheck_on_card(dev):
     q, k, v = (torch.randn(2, 128, n, 64, generator=g, device=dev).to(
         torch.bfloat16).requires_grad_() for n in (8, 2, 2))
     torch.library.opcheck(fa._flash_op, (q, k, v, True, None, None, 0.125))
+    do = torch.randn(2, 128, 8, 64, generator=g, device=dev).to(
+        torch.bfloat16)
+    torch.library.opcheck(fa._flash_bwd_op, (q.detach(), k.detach(),
+                                             v.detach(), do, True, None,
+                                             None, 0.125))
+
+
+def _grads(fn, q, k, v, do, **kw):
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves, **kw), leaves, do)
+
+
+# (B, Sq, Skv, H, K, D, causal, q_offset, kv_len) of the bf16 backward
+# kernels' checks: seamless-m4t's train call (non-causal encoder and cross,
+# causal decoder), llama3.2-1b's (GQA 4), a D = 128 GQA 16 call (qwen3-moe
+# EP's heads), and the masks' edges with rows that see no key.  Worst |err|
+# (dq, dk, dv) measured on the H100 by chip_smoke.py's checks at these
+# shapes: seamless non-causal 0.0018, 0.0010, 0.0010; causal 0.0075, 0.0078,
+# 0.0153; llama 0.0078, 0.0158, 0.0261; D128 GQA 16 (batch 4) 0.0078,
+# 0.0315, 0.0637 (|dv| reaches ~20, so 4e-3 relative allows ~0.08); masks
+# with rows that see no key 0.0077, 0.0077, 0.0150; kv_len < keys
+# non-causal 0.0038, 0.0039, 0.0037; D128 masks 0.0075, 0.0219, 0.0455
+BWD_SHAPES = {
+    "seamless non-causal": (4, 2048, 2048, 16, 16, 64, False, None, None),
+    "seamless causal": (4, 2048, 2048, 16, 16, 64, True, None, None),
+    "llama GQA 4": (2, 2048, 2048, 32, 8, 64, True, None, None),
+    "D128 GQA 16": (1, 2048, 2048, 64, 4, 128, True, None, None),
+    "masks, rows that see no key": (2, 100, 300, 8, 2, 64, True, [-40, 200],
+                                    [300, 0]),
+    "kv_len < keys, non-causal, D32": (2, 40, 300, 8, 2, 32, False, None,
+                                       [77, 300]),
+    "D128 masks": (2, 100, 300, 32, 2, 128, True, [200, 0], [300, 100]),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_SHAPES))
+def test_flash_backward_kernels_match_plain_vjp(dev, case):
+    """bf16 dq, dk and dv from the op's gradient (the backward kernels, one
+    launch a call) against the plain VJP in fp32 on the same values, at the
+    forward's bf16 tolerance (4e-3, rtol = atol): each gradient is rounded
+    to bf16 once, as the forward's output is held against the plain fp32
+    output.  K and V past kv_len hold large values."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, sq, skv, h, kh, d, causal, qo, kl = BWD_SHAPES[case]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, skv, kh, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    if kl is not None:
+        for i, n in enumerate(kl):
+            k[i, n:] = 1e4
+            v[i, n:] = 1e4
+    kw = dict(causal=causal,
+              q_offset=None if qo is None else torch.tensor(qo, device=dev),
+              kv_len=None if kl is None else torch.tensor(kl, device=dev))
+    n0 = fa.BWD_LAUNCHES.count
+    got = _grads(fa.flash_attention, q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES.count == n0 + 1
+    want = _grads(attention_ref, q.float(), k.float(), v.float(), do.float(),
+                  **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        torch.testing.assert_close(a.float(), w, rtol=4e-3, atol=4e-3,
+                                   msg=name)
+
+
+def test_flash_backward_is_bit_identical_across_calls(dev):
+    """No atomics: two backward calls at the seamless causal shape give the
+    same bits."""
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, do = (torch.randn(4, 2048, 16, 64, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(4, 2048, 16, 64, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    one = _grads(fa.flash_attention, q, k, v, do)
+    two = _grads(fa.flash_attention, q, k, v, do)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 def test_llama_train_step_at_full_width_two_layers(dev):
     """One train step of llama3.2-1b at its widths (2 of its 16 layers),
     bf16 compute, per-layer remat, grad_accum 2: a finite loss, and per
-    microbatch a flash launch a layer for the forward and the recompute and
-    an RMSNorm launch per block norm in each, plus the final norm."""
+    microbatch a flash launch a layer for the forward and the recompute, a
+    flash backward launch a layer, and an RMSNorm launch per block norm in
+    each, plus the final norm."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.flash_attention import ops as fa
@@ -412,10 +498,13 @@ def test_llama_train_step_at_full_width_two_layers(dev):
     batch = {k: torch.as_tensor(v, device=dev) for k, v in SyntheticTokens(
         cfg.vocab_size, 512, 4, seed=0).batch_at(0).items()}
     f0, r0 = fa.LAUNCHES.count, rms.LAUNCHES.count
+    b0 = fa.BWD_LAUNCHES.count
     state, metrics = step(state, batch)
     assert np.isfinite(float(metrics["loss"]))
     assert float(metrics["aux"]) == 0.0
     assert fa.LAUNCHES.count - f0 == 2 * 2 * 2
+    # one backward launch an attention call: a layer a microbatch
+    assert fa.BWD_LAUNCHES.count - b0 == 2 * 2
     assert rms.LAUNCHES.count - r0 == (2 * 2 * 2 + 1) * 2
 
 

@@ -1,5 +1,5 @@
 """The flash-attention kernel's launch plan, its split-KV combine and its
-cost, on the CPU.
+cost, and the backward kernels' plan, on the CPU.
 
 The plan (keys or rows mode, row tiles, splits, scratch) is a pure function
 of shapes and the SM count, so it is pinned here.  The combine kernel's
@@ -114,6 +114,61 @@ def test_smem_of_a_block_fits_the_sm(d):
     """Three stages of K and V tiles, rows padded by 16 bytes."""
     assert fa_ops.smem_bytes(d) == 2 * 3 * 64 * (d + 8) * 2
     assert fa_ops.smem_bytes(d) <= fa_ops.SM_SMEM
+
+
+# -- the backward kernels' plan ----------------------------------------------------
+
+# registers a thread holds through the backward's loops (accumulators and
+# the dq kernel's Q and dO fragments), well under the 255 a thread may use:
+# the rest are addresses, masks and the products' operands in flight
+BWD_HELD_REGS = 160
+
+
+def test_backward_plan_of_the_seamless_train_call():
+    """q (4, 2048, 16, 64), MHA: 2048 packed rows a (batch, head), 32 row
+    blocks of dq and 32 key blocks of dK/dV over 64 (batch, head) pairs;
+    LSE and D in 1 MB of fp32 scratch."""
+    p = fa_ops.backward_plan(4, 2048, 2048, 16, 16, 64)
+    assert p.rows_pad == 2048 and p.tile == 64
+    assert p.dq_grid == (32, 64) and p.dkdv_grid == (32, 64)
+    assert p.scratch == (2, 64 * 2048)
+    assert 4 * p.scratch[0] * p.scratch[1] == 1 << 20
+
+
+@pytest.mark.parametrize("sq,h,kh,rows_pad", [
+    (2048, 32, 8, 8192),      # llama3.2-1b: a group of 4
+    (2048, 64, 4, 32768),     # qwen3-moe EP: a group of 16
+    (5, 32, 2, 128),          # 80 packed rows: two blocks, padded
+    (1, 4, 4, 64),
+])
+def test_backward_plan_pads_the_packed_rows_to_the_dq_block(sq, h, kh,
+                                                            rows_pad):
+    p = fa_ops.backward_plan(2, sq, 300, h, kh, 64)
+    assert p.rows_pad == rows_pad and rows_pad % fa_ops.BWD_BLOCK_M == 0
+    assert rows_pad - fa_ops.BWD_BLOCK_M < sq * h // kh <= rows_pad
+    assert p.dq_grid == (rows_pad // fa_ops.BWD_BLOCK_M, 2 * kh)
+    assert p.dkdv_grid == (5, 2 * kh)          # 300 keys: 5 blocks of 64
+    assert p.scratch == (2, 2 * kh * rows_pad)
+
+
+@pytest.mark.parametrize("d,tile", [(32, 64), (64, 64), (128, 32)])
+def test_backward_tiles_fit_shared_memory_and_registers(d, tile):
+    """The dq kernel's key tiles and the dK/dV kernel's row tiles halve at
+    D = 128, where dK and dV take 64 registers each: tile + D registers a
+    thread stay within the budget; both kernels' rings fit the SM, and each
+    tile is a whole number of 16-byte chunks for every thread."""
+    p = fa_ops.backward_plan(4, 2048, 2048, 16, 16, d)
+    assert p.tile == fa_ops.bwd_tile(d) == tile
+    assert p.held_regs == tile + d <= BWD_HELD_REGS
+    stride = (d + 8) * 2
+    assert p.dq_smem == fa_ops.BWD_STAGES * 2 * tile * stride
+    assert p.dkdv_smem == (2 * fa_ops.BWD_KEYS * stride + fa_ops.BWD_STAGES
+                           * (2 * tile * stride + 2 * tile * 4))
+    assert max(p.dq_smem, p.dkdv_smem) <= fa_ops.SM_SMEM
+    for rows in (tile, fa_ops.BWD_KEYS):
+        assert rows * d // 8 % fa_ops.BWD_THREADS == 0
+    assert tile // 2 <= fa_ops.BWD_THREADS     # LSE and D: a chunk a thread
+    assert fa_ops.BWD_BLOCK_M % tile == 0      # row tiles end in the padding
 
 
 # -- split-KV partials and their combine ------------------------------------------
