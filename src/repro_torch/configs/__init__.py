@@ -12,6 +12,7 @@ from repro_torch.configs import (  # noqa: F401
     kimi_k2_1t_a32b,
     qwen3_moe_235b_a22b,
     jamba_1_5_large_398b,
+    granite_4_0_h_small,
     seamless_m4t_large_v2,
     mamba2_2_7b,
 )

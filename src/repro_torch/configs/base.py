@@ -38,6 +38,9 @@ class MoEConfig:
     # O(N * E * C)).
     group_size: int = 512
     router_aux_loss: float = 0.01
+    # width of the shared SwiGLU expert; 0: ``num_shared_experts`` times the
+    # config's ``d_ff`` (the transformer block's sizing)
+    d_ff_shared: int = 0
     # "einsum": GSPMD places the collectives (baseline).  "ep_a2a": explicit
     # shard_map all-to-all expert parallelism — experts sharded over `data`,
     # expert FFN width over `model`; only routed activations move.
@@ -54,6 +57,8 @@ class MambaConfig:
     head_dim: int = 64
     chunk_size: int = 256
     ngroups: int = 1
+    # a bias on each channel of the depthwise conv, added before its SiLU
+    conv_bias: bool = False
 
 
 @dataclass(frozen=True)
@@ -123,6 +128,15 @@ class ArchConfig:
     # chunked cross-entropy: max (seq*vocab) elements per device before the
     # loss switches to a seq-chunked logsumexp scan.
     loss_chunk: int = 512
+    # scalings of the granite families; each default adds no operation:
+    # the embedding's output times ``embedding_multiplier``, every residual
+    # branch (mixer, FFN) times ``residual_multiplier`` before its add, the
+    # attention softmax's scale ``attention_multiplier`` (0: 1/sqrt(head
+    # dim)), the logits divided by ``logits_scaling``
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    logits_scaling: float = 1.0
     # citation / provenance string of the published config
     source: str = ""
 
@@ -152,6 +166,8 @@ class ArchConfig:
             mamba_p = d * (2 * d_in + d_bc + nheads) + d_in * d + 4 * (
                 d_in + d_bc
             ) + 2 * nheads
+            if self.mamba.conv_bias:
+                mamba_p += d_in + d_bc
         for i in range(self.num_layers):
             is_attn = (i % self.attn_every) == self.attn_offset
             if self.family == "ssm":
@@ -165,7 +181,10 @@ class ArchConfig:
             if self.moe is not None and i % self.moe.every_k == self.moe.offset:
                 e = self.moe
                 n += self.moe.num_experts * 3 * d * e.d_ff_expert
-                n += e.num_shared_experts * 3 * d * e.d_ff_expert
+                if e.d_ff_shared:
+                    n += 3 * d * e.d_ff_shared
+                else:
+                    n += e.num_shared_experts * 3 * d * e.d_ff_expert
                 n += d * self.moe.num_experts  # router
             elif self.d_ff:
                 n += dense_ffn
@@ -186,7 +205,9 @@ class ArchConfig:
             [i for i in range(self.num_layers) if i % e.every_k == e.offset]
         )
         all_experts = moe_layers * e.num_experts * 3 * self.d_model * e.d_ff_expert
-        active = moe_layers * (e.top_k + e.num_shared_experts) * 3 * self.d_model * e.d_ff_expert
+        # a shared expert of its own width is already in the total
+        per_token = e.top_k + (0 if e.d_ff_shared else e.num_shared_experts)
+        active = moe_layers * per_token * 3 * self.d_model * e.d_ff_expert
         return total - all_experts + active
 
 
@@ -284,6 +305,7 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
             d_ff_expert=64,
             group_size=32,
             num_shared_experts=min(cfg.moe.num_shared_experts, 1),
+            d_ff_shared=128 if cfg.moe.d_ff_shared else 0,
         )
     if cfg.mamba is not None:
         changes["mamba"] = dataclasses.replace(
@@ -299,6 +321,7 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     # keep hybrid interleave pattern meaningful at 4 layers
     if cfg.attn_every > 1:
         changes["attn_every"] = 2
+        changes["attn_offset"] = cfg.attn_offset % 2
         changes["num_layers"] = 4
     return dataclasses.replace(cfg, **changes)
 

@@ -19,10 +19,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import (
+    _ffn,
     _prefix_layers,
     _remat,
     _stack,
     head_weight,
+    layer,
+    shared_width,
     unbind_layers,
 )
 
@@ -50,17 +53,29 @@ def _n_mamba(cfg: ArchConfig) -> int:
     return sum(1 for m, _ in _sublayer_kinds(cfg) if m == "mamba")
 
 
+def _kind_counts(cfg: ArchConfig) -> dict:
+    """Sublayers of each kind in one period; a shared expert beside each
+    MoE where the config has one."""
+    kinds = _sublayer_kinds(cfg)
+    counts = {k: sum(1 for m, f in kinds if k in (m, f))
+              for k in ("attn", "mamba", "mlp", "moe")}
+    if cfg.moe is not None and cfg.moe.num_shared_experts:
+        counts["shared_mlp"] = counts["moe"]
+    return counts
+
+
 def init_superblock(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """One period's parameters, stacked per kind of sublayer."""
     kinds = _sublayer_kinds(cfg)
     dt, dev = cfg.param_dtype, gen.device
-    counts = {k: sum(1 for m, f in kinds if k in (m, f))
-              for k in ("attn", "mamba", "mlp", "moe")}
+    counts = _kind_counts(cfg)
     inits = {
         "attn": lambda: L.init_attention(gen, cfg),
         "mamba": lambda: MB.init_mamba(gen, cfg),
         "mlp": lambda: L.init_mlp(gen, cfg.d_model, cfg.d_ff, dt),
         "moe": lambda: M.init_moe(gen, cfg.d_model, cfg.moe, dt),
+        "shared_mlp": lambda: L.init_mlp(gen, cfg.d_model, shared_width(cfg),
+                                         dt),
     }
     params = {k: _stack([inits[k]() for _ in range(n)])
               for k, n in counts.items() if n}
@@ -74,17 +89,48 @@ def superblock_axes(cfg: ArchConfig) -> dict:
     """The logical axes of :func:`init_superblock`'s leaves: each kind's
     stack with a leading ``layers`` axis, the period's norms
     ``("layers", "embed")``."""
-    kinds = _sublayer_kinds(cfg)
     per_kind = {
         "attn": lambda: L.attention_axes(cfg),
-        "mamba": lambda: dict(MB.MAMBA_AXES),
+        "mamba": lambda: MB.mamba_axes(cfg),
         "mlp": lambda: dict(L.MLP_AXES),
         "moe": lambda: M.moe_axes(cfg.moe),
+        "shared_mlp": lambda: dict(L.MLP_AXES),
     }
-    axes = {k: _prefix_layers(per_kind[k]()) for k in per_kind
-            if any(k in (m, f) for m, f in kinds)}
+    axes = {k: _prefix_layers(per_kind[k]()) for k, n in
+            _kind_counts(cfg).items() if n}
     axes["norm1"] = axes["norm2"] = ("layers", "embed")
     return axes
+
+
+def period_layers(p: dict, cfg: ArchConfig):
+    """Each sublayer of one period, in order: (mixer, the mixer's index
+    among the period's sublayers of its kind, its parameters keyed as a
+    transformer block's: ``attn`` or ``mamba``; ``moe`` (with
+    ``shared_mlp`` where the config has one) or ``mlp`` where it has an
+    FFN; ``norm1``, ``norm2``), views of the period's stacked leaves."""
+    per_kind = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in p.items()}
+    seen = dict.fromkeys(per_kind, 0)
+    for j, (mixer, ffn) in enumerate(_sublayer_kinds(cfg)):
+        used = [mixer] + ([] if ffn == "none" else [ffn])
+        if ffn == "moe" and "shared_mlp" in per_kind:
+            used.append("shared_mlp")
+        sp = {k: per_kind[k][seen[k]] for k in used}
+        sp.update(norm1=per_kind["norm1"][j], norm2=per_kind["norm2"][j])
+        yield mixer, seen[mixer], sp
+        for k in used:
+            seen[k] += 1
+
+
+def stack_layers(params: dict, cfg: ArchConfig):
+    """Each layer of the whole stack, in order: (mixer, the mixer's index
+    among the stack's layers of its kind, its parameters as
+    :func:`period_layers` gives them)."""
+    seen = {"attn": 0, "mamba": 0}
+    for sb in range(_n_superblocks(cfg)):
+        for mixer, _, sp in period_layers(layer(params["blocks"], sb), cfg):
+            yield mixer, seen[mixer], sp
+            seen[mixer] += 1
 
 
 def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
@@ -97,17 +143,13 @@ def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
     place.  Returns (x, aux, new_caches), new_caches {"kv", "ssm"} with the
     mamba layers' new states stacked, or None without caches.
     """
-    kinds = _sublayer_kinds(cfg)
-    cdt = cfg.compute_dtype
-    per_kind = {k: unbind_layers(v) if isinstance(v, dict) else v.unbind(0)
-                for k, v in p.items()}
+    cdt, rm = cfg.compute_dtype, cfg.residual_multiplier
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    i_attn = i_mamba = i_mlp = i_moe = 0
     new_ssm = []
-    for j, (mixer, ffn) in enumerate(kinds):
-        h = L.rmsnorm(x, per_kind["norm1"][j], cfg.norm_eps, cdt)
+    for mixer, i, sp in period_layers(p, cfg):
+        h = L.rmsnorm(x, sp["norm1"], cfg.norm_eps, cdt)
         if mixer == "attn":
-            ap = per_kind["attn"][i_attn]
+            ap = sp["attn"]
             if caches is None:
                 y = L.attention(ap, h, cfg, positions=positions)
             elif decode_len is None:
@@ -116,9 +158,8 @@ def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
             else:
                 y, _ = L.attention_decode(ap, h, cfg, cache=caches["kv"],
                                           cache_len=decode_len)
-            i_attn += 1
         else:
-            mp = per_kind["mamba"][i_mamba]
+            mp = sp["mamba"]
             if caches is None:
                 y, _ = MB.mamba_forward(mp, h, cfg)
             elif decode_len is None:
@@ -126,21 +167,16 @@ def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
                 new_ssm.append(st)
             else:
                 y, st = MB.mamba_step(
-                    mp, h, cfg, {k: v[i_mamba] for k, v in caches["ssm"].items()})
+                    mp, h, cfg, {k: v[i] for k, v in caches["ssm"].items()})
                 new_ssm.append(st)
-            i_mamba += 1
-        x = x + y
-        if ffn == "none":
+        x = L.residual(x, y, rm)
+        if "moe" not in sp and "mlp" not in sp:
             continue
-        h = L.rmsnorm(x, per_kind["norm2"][j], cfg.norm_eps, cdt)
-        if ffn == "moe":
-            y, a = M.moe_ffn(per_kind["moe"][i_moe], h, cfg.moe, cdt)
+        h = L.rmsnorm(x, sp["norm2"], cfg.norm_eps, cdt)
+        y, a = _ffn(sp, h, cfg)
+        if "moe" in sp:
             aux = aux + a
-            i_moe += 1
-        else:
-            y = L.mlp(per_kind["mlp"][i_mlp], h, cdt)
-            i_mlp += 1
-        x = x + y
+        x = L.residual(x, y, rm)
     new_caches = None
     if caches is not None:
         new_caches = {"kv": caches["kv"], "ssm": _stack(new_ssm)}
@@ -187,7 +223,7 @@ def param_axes(cfg: ArchConfig) -> dict:
     JAX package's ``init_params`` returns beside the parameters (a hybrid
     superblock's stacked leaves carry ``layers`` twice, as there)."""
     if cfg.family == "ssm":
-        blocks = {"mixer": dict(MB.MAMBA_AXES), "norm": L.RMSNORM_AXES}
+        blocks = {"mixer": MB.mamba_axes(cfg), "norm": L.RMSNORM_AXES}
     else:
         blocks = superblock_axes(cfg)
     axes = {"embed": L.EMBED_AXES, "blocks": _prefix_layers(blocks),
@@ -207,7 +243,7 @@ def run_stack(params, x, cfg: ArchConfig, *, positions):
         def body(h, bp):
             n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cfg.compute_dtype)
             y, _ = MB.mamba_forward(bp["mixer"], n, cfg)
-            return h + y
+            return L.residual(h, y, cfg.residual_multiplier)
 
         body = _remat(body, cfg)
         for bp in unbind_layers(params["blocks"]):
@@ -232,13 +268,15 @@ def _positions(tokens):
 
 def loss_fn(params, batch, cfg: ArchConfig):
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], batch["tokens"], cdt)
+    h = L.embed(params["embed"], batch["tokens"], cdt,
+                cfg.embedding_multiplier)
     positions = None if cfg.family == "ssm" else _positions(batch["tokens"])
     h, aux = run_stack(params, h, cfg, positions=positions)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
     ce = L.chunked_xent(
-        h, w, batch["labels"], transpose=transpose, chunk=cfg.loss_chunk
+        h, w, batch["labels"], transpose=transpose, chunk=cfg.loss_chunk,
+        scaling=cfg.logits_scaling,
     )
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -280,13 +318,13 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     KV caches written in place and its SSM states those of the prompt.
     """
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], tokens, cdt)
+    h = L.embed(params["embed"], tokens, cdt, cfg.embedding_multiplier)
     caches = []
     if cfg.family == "ssm":
         for bp in unbind_layers(params["blocks"]):
             n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
             y, st = MB.mamba_forward(bp["mixer"], n, cfg)
-            h = h + y
+            h = L.residual(h, y, cfg.residual_multiplier)
             caches.append(st)
         cache = _stack(caches)
     else:
@@ -301,21 +339,22 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
         cache = {"kv": cache["kv"], "ssm": _stack(caches)}
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose), cache
+    return L.logits_head(w, h[:, -1:], transpose=transpose,
+                         scaling=cfg.logits_scaling), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
     """token: (B,1) integer.  Returns (logits, new cache); the hybrid KV
     caches are updated in place."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], token, cdt)
+    h = L.embed(params["embed"], token, cdt, cfg.embedding_multiplier)
     caches = []
     if cfg.family == "ssm":
         for i, bp in enumerate(unbind_layers(params["blocks"])):
             n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
             y, st = MB.mamba_step(bp["mixer"], n, cfg,
                                   {k: v[i] for k, v in cache.items()})
-            h = h + y
+            h = L.residual(h, y, cfg.residual_multiplier)
             caches.append(st)
         new_cache = _stack(caches)
     else:
@@ -328,4 +367,5 @@ def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
         new_cache = {"kv": cache["kv"], "ssm": _stack(caches)}
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose), new_cache
+    return L.logits_head(w, h, transpose=transpose,
+                         scaling=cfg.logits_scaling), new_cache

@@ -234,8 +234,12 @@ def _sdpa(q, k, v, cfg, *, q_offset: Optional[torch.Tensor] = None,
         # output shape (no kernel runs)
         return q * (1.0 / math.sqrt(q.shape[-1]))
     k, v = S.rank_view().kv(q, k, v)
+    # getattr: the parity tests hand in the JAX package's config, which has
+    # no attention_multiplier
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset,
-                           kv_len=kv_len)
+                           kv_len=kv_len,
+                           sm_scale=getattr(cfg, "attention_multiplier", 0)
+                           or None)
 
 
 def attention(p, x, cfg, *, positions, mask=None, cross_kv=None,
@@ -427,17 +431,30 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype):
 EMBED_AXES = ("vocab", "embed")
 
 
-def embed(emb, tokens, compute_dtype):
-    return emb[tokens].to(dtype_of(compute_dtype))
+def embed(emb, tokens, compute_dtype, multiplier: float = 1.0):
+    """The tokens' rows in the compute dtype, times ``multiplier``."""
+    return scaled(emb[tokens].to(dtype_of(compute_dtype)), multiplier)
 
 
-def logits_head(emb_or_w, x, *, transpose: bool):
-    """Final projection to vocab; fp32 logits."""
+def scaled(x, multiplier: float):
+    """``x * multiplier``; ``x`` itself, with no operation, for 1."""
+    return x if multiplier == 1.0 else x * multiplier
+
+
+def residual(x, y, multiplier: float = 1.0):
+    """The residual add of a branch ``y``, scaled by ``multiplier``."""
+    return x + scaled(y, multiplier)
+
+
+def logits_head(emb_or_w, x, *, transpose: bool, scaling: float = 1.0):
+    """Final projection to vocab; fp32 logits, divided by ``scaling``."""
     w = emb_or_w.float()
     xf = x.float()
     if transpose:  # tied embeddings: w is (vocab, d)
-        return torch.einsum("bsd,vd->bsv", xf, w)
-    return torch.einsum("bsd,dv->bsv", xf, w)
+        out = torch.einsum("bsd,vd->bsv", xf, w)
+    else:
+        out = torch.einsum("bsd,dv->bsv", xf, w)
+    return out if scaling == 1.0 else out / scaling
 
 
 def softmax_xent(logits, labels, mask=None):
@@ -451,10 +468,11 @@ def softmax_xent(logits, labels, mask=None):
 
 
 def chunked_xent(hidden, head_w, labels, *, transpose: bool, chunk: int,
-                 mask=None):
+                 mask=None, scaling: float = 1.0):
     """Cross-entropy without materializing full (B,S,V) fp32 logits.
 
-    Loops over sequence chunks; each chunk computes logits -> logsumexp ->
+    ``scaling`` divides the logits (:func:`logits_head`).  Loops over
+    sequence chunks; each chunk computes logits -> logsumexp ->
     label gather under ``torch.utils.checkpoint`` (the JAX package's
     per-chunk ``jax.checkpoint``), so only (B, chunk, V) logits are live and
     the backward pass recomputes them.  The sums run in the JAX scan's order.
@@ -465,7 +483,8 @@ def chunked_xent(hidden, head_w, labels, *, transpose: bool, chunk: int,
         raise ValueError(f"seq {s} % loss chunk {chunk} != 0")
 
     def body(h, lab, mk):
-        logits = logits_head(head_w, h, transpose=transpose)
+        logits = logits_head(head_w, h, transpose=transpose,
+                             scaling=scaling)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, lab[..., None].long())[..., 0]
         return ((lse - tgt) * mk).sum()

@@ -40,7 +40,7 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig) -> dict:
     d, g, ds, hd, w = cfg.d_model, m.ngroups, m.d_state, m.head_dim, m.d_conv
     dt, dev = cfg.param_dtype, gen.device
     f32 = torch.float32
-    return {
+    p = {
         "wz": _init_dense(gen, (d, nh, hd), d, dt),
         "wx": _init_dense(gen, (d, nh, hd), d, dt),
         "wB": _init_dense(gen, (d, g, ds), d, dt),
@@ -55,6 +55,11 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig) -> dict:
         "norm": torch.ones((nh, hd), dtype=dtype_of(dt), device=dev),
         "wo": _init_dense(gen, (nh, hd, d), nh * hd, dt),
     }
+    if m.conv_bias:
+        for key, shape in (("conv_x_bias", (nh, hd)), ("conv_B_bias", (g, ds)),
+                           ("conv_C_bias", (g, ds))):
+            p[key] = torch.zeros(shape, dtype=dtype_of(dt), device=dev)
+    return p
 
 
 # the logical axes of init_mamba's leaves (the second value of the JAX
@@ -76,11 +81,23 @@ MAMBA_AXES = {
 }
 
 
-def _causal_depthwise_conv(x, kernel, tail=None):
+def mamba_axes(cfg: ArchConfig) -> dict:
+    """The logical axes of :func:`init_mamba`'s leaves for ``cfg``: those
+    of :data:`MAMBA_AXES`, and the conv biases' where the config has them."""
+    axes = dict(MAMBA_AXES)
+    if cfg.mamba.conv_bias:
+        axes["conv_x_bias"] = ("heads", "head_dim")
+        axes["conv_B_bias"] = axes["conv_C_bias"] = (None, "ssm_state")
+    return axes
+
+
+def _causal_depthwise_conv(x, kernel, tail=None, bias=None, length=None):
     """x: (B, S, *ch); kernel: (w, *ch).  Causal depthwise conv along S.
 
     tail: optional (B, w-1, *ch) history prepended (prefill/decode chaining);
-    zeros when None.  Returns (y, new_tail).
+    zeros when None.  bias: optional (*ch), added before the SiLU.
+    length: the real positions of x, the rest right-padding; the new tail is
+    the last w-1 inputs before it.  Returns (y, new_tail).
     """
     w = kernel.shape[0]
     b, s = x.shape[:2]
@@ -91,7 +108,10 @@ def _causal_depthwise_conv(x, kernel, tail=None):
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for i in range(w):  # w is 4
         y = y + xp[:, i:i + s].float() * kernel[i].float()
-    new_tail = xp[:, s:]  # last w-1 inputs
+    if bias is not None:
+        y = y + bias.float()
+    end = s if length is None else length
+    new_tail = xp[:, end:end + w - 1]  # last w-1 inputs
     return F.silu(y).to(x.dtype), new_tail
 
 
@@ -134,20 +154,28 @@ def _pad_seq(t, pad: int):
     return F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])
 
 
-def mamba_forward(p, x, cfg: ArchConfig, *, conv_tails=None, init_state=None):
+def mamba_forward(p, x, cfg: ArchConfig, *, conv_tails=None, init_state=None,
+                  length=None):
     """Full-sequence mixer. x: (B,S,D) -> (y, cache_out).
 
     cache_out = {"conv_x","conv_B","conv_C": tails, "state": (B,nh,ds,hd)}.
     init_state/conv_tails chain from a previous segment (prefill continuation).
+    length: where x is right-padded, its real positions: the padding's dt is
+    0, so it neither decays nor feeds the state, and the tails end at it.
     """
     m, _, nh = mamba_dims(cfg)
     nh = rank_view().heads(p["wx"].shape[1], nh)   # a dry-run rank's share
     cdt = dtype_of(cfg.compute_dtype)
     z, xh, B_, C_, dt = _project(p, x, cfg)
+    if length is not None and length < x.shape[1]:
+        dt = _pad_seq(dt[:, :length], x.shape[1] - length)
     t = conv_tails or {}
-    xh, tx = _causal_depthwise_conv(xh, p["conv_x"].to(cdt), t.get("conv_x"))
-    B_, tb = _causal_depthwise_conv(B_, p["conv_B"].to(cdt), t.get("conv_B"))
-    C_, tc = _causal_depthwise_conv(C_, p["conv_C"].to(cdt), t.get("conv_C"))
+    xh, tx = _causal_depthwise_conv(xh, p["conv_x"].to(cdt), t.get("conv_x"),
+                                    p.get("conv_x_bias"), length)
+    B_, tb = _causal_depthwise_conv(B_, p["conv_B"].to(cdt), t.get("conv_B"),
+                                    p.get("conv_B_bias"), length)
+    C_, tc = _causal_depthwise_conv(C_, p["conv_C"].to(cdt), t.get("conv_C"),
+                                    p.get("conv_C_bias"), length)
     A = -torch.exp(p["A_log"])  # (nh,) < 0
     # pad to a chunk multiple: dt=0 on padding makes it a no-op for the state
     # (decay exp(0*A)=1, input contribution dt*B (x) x = 0).  B and C are
@@ -214,26 +242,41 @@ MAMBA_CACHE_AXES = {
 }
 
 
-def mamba_step(p, x, cfg: ArchConfig, cache):
-    """Single-token decode. x: (B,1,D) -> (y, new_cache). O(1) in history."""
+def mamba_step(p, x, cfg: ArchConfig, cache, *, active=None):
+    """Single-token decode. x: (B,1,D) -> (y, new_cache). O(1) in history.
+
+    active: optional (B,) bool, the lanes that step; the others' dt is 0, so
+    their state comes back as it came in (decay 1, no input), and so do
+    their conv tails."""
     _, _, nh = mamba_dims(cfg)
     nh = rank_view().heads(p["wx"].shape[1], nh)   # a dry-run rank's share
     cdt = dtype_of(cfg.compute_dtype)
     z, xh, B_, C_, dt = _project(p, x, cfg)  # all (B,1,...)
 
-    def conv_step(tail, new, kernel):
+    def conv_step(tail, new, kernel, bias):
         window = torch.cat([tail.to(new.dtype), new], dim=1)  # (B,w,...)
+        # contiguous: on CUDA the einsum can return the lanes innermost, and
+        # x's layout then passes to the outer product below, whose add over
+        # the (B, heads, d_state, head_dim) state then runs ~9x slower
         y = torch.einsum("bw...,w...->b...", window.float(),
-                         kernel.float())[:, None]
-        return F.silu(y).to(new.dtype), window[:, 1:]
+                         kernel.float()).contiguous()[:, None]
+        if bias is not None:
+            y = y + bias.float()
+        new_tail = window[:, 1:]
+        if active is not None:
+            keep = active.view((-1,) + (1,) * (tail.dim() - 1))
+            new_tail = torch.where(keep, new_tail, tail.to(new.dtype))
+        return F.silu(y).to(new.dtype), new_tail
 
-    xh, tx = conv_step(cache["conv_x"], xh, p["conv_x"])
-    B_, tb = conv_step(cache["conv_B"], B_, p["conv_B"])
-    C_, tc = conv_step(cache["conv_C"], C_, p["conv_C"])
+    xh, tx = conv_step(cache["conv_x"], xh, p["conv_x"], p.get("conv_x_bias"))
+    B_, tb = conv_step(cache["conv_B"], B_, p["conv_B"], p.get("conv_B_bias"))
+    C_, tc = conv_step(cache["conv_C"], C_, p["conv_C"], p.get("conv_C_bias"))
     B_h = _expand_groups(B_, nh)[:, 0]  # (B,nh,ds)
     C_h = _expand_groups(C_, nh)[:, 0]
     xh1 = xh[:, 0]  # (B,nh,hd)
     dt1 = dt[:, 0]  # (B,nh)
+    if active is not None:
+        dt1 = dt1 * active[:, None]
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dt1 * A)  # (B,nh)
     st = cache["state"] * decay[:, :, None, None] + torch.einsum(

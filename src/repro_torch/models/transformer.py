@@ -35,8 +35,7 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
         params["moe"] = M.init_moe(gen, cfg.d_model, cfg.moe, cfg.param_dtype)
         if cfg.moe.num_shared_experts:
             params["shared_mlp"] = L.init_mlp(
-                gen, cfg.d_model, cfg.moe.num_shared_experts * cfg.d_ff,
-                cfg.param_dtype)
+                gen, cfg.d_model, shared_width(cfg), cfg.param_dtype)
     else:
         params["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
     return params
@@ -158,6 +157,12 @@ def _remat(fn, cfg: ArchConfig):
     return run
 
 
+def shared_width(cfg: ArchConfig) -> int:
+    """The shared expert's width: ``moe.d_ff_shared``, or the number of
+    shared experts times the dense ``d_ff``."""
+    return cfg.moe.d_ff_shared or cfg.moe.num_shared_experts * cfg.d_ff
+
+
 def _ffn(p, h, cfg: ArchConfig):
     """The block's FFN on the normed hidden h: (y, aux loss)."""
     cdt = cfg.compute_dtype
@@ -171,12 +176,13 @@ def _ffn(p, h, cfg: ArchConfig):
 
 def apply_block(p, x, cfg: ArchConfig, *, positions, mask=None):
     """One block over the whole sequence: (x, aux loss)."""
-    cdt = cfg.compute_dtype
+    cdt, rm = cfg.compute_dtype, cfg.residual_multiplier
     h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, cdt)
-    x = x + L.attention(p["attn"], h, cfg, positions=positions, mask=mask)
+    x = L.residual(x, L.attention(p["attn"], h, cfg, positions=positions,
+                                  mask=mask), rm)
     h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, cdt)
     y, aux = _ffn(p, h, cfg)
-    return x + y, aux
+    return L.residual(x, y, rm), aux
 
 
 def run_stack(params, x, cfg: ArchConfig, *, positions, mask=None):
@@ -198,7 +204,8 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     """Returns (h, positions, text_start).  For vlm, prepends the projected
     patch embeddings; text occupies positions [num_patches, num_patches+S)."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], batch["tokens"], cdt)
+    h = L.embed(params["embed"], batch["tokens"], cdt,
+                cfg.embedding_multiplier)
     b = h.shape[0]
     if cfg.num_patches:
         pr = params["projector"]
@@ -222,7 +229,8 @@ def loss_fn(params, batch, cfg: ArchConfig):
         h = h[:, text_start:]
     w, transpose = head_weight(params, cfg)
     ce = L.chunked_xent(h, w, batch["labels"], transpose=transpose,
-                        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"))
+                        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"),
+                        scaling=cfg.logits_scaling)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -263,28 +271,30 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, patches=None):
         n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
         a, _ = L.attention_prefill(bp["attn"], n, cfg, positions=positions,
                                    cache=lc)
-        h = h + a
+        h = L.residual(h, a, cfg.residual_multiplier)
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + _ffn(bp, n, cfg)[0]
+        h = L.residual(h, _ffn(bp, n, cfg)[0], cfg.residual_multiplier)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose), cache
+    return L.logits_head(w, h[:, -1:], transpose=transpose,
+                         scaling=cfg.logits_scaling), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
     """token: (B,1) integer; cache_len: int.  Returns (logits, cache); the
     cache is updated in place."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], token, cdt)
+    h = L.embed(params["embed"], token, cdt, cfg.embedding_multiplier)
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache.items()}
         n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
         a, _ = L.attention_decode(bp["attn"], n, cfg, cache=lc,
                                   cache_len=cache_len)
-        h = h + a
+        h = L.residual(h, a, cfg.residual_multiplier)
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + _ffn(bp, n, cfg)[0]
+        h = L.residual(h, _ffn(bp, n, cfg)[0], cfg.residual_multiplier)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
     w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose), cache
+    return L.logits_head(w, h, transpose=transpose,
+                         scaling=cfg.logits_scaling), cache

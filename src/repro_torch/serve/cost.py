@@ -41,6 +41,9 @@ FAMILY_PREFILL = "serve_prefill"
 FAMILY_DECODE = "serve_decode"
 SERVE_FAMILIES = (FAMILY_PREFILL, FAMILY_DECODE)
 _XKEY = {FAMILY_PREFILL: "tokens", FAMILY_DECODE: "slots"}
+# model families whose serve steps the twin prices (the paged forward
+# serves the hybrid family too, whose recurrent state it has no terms for)
+PRICED_FAMILIES = ("dense", "moe")
 
 
 # -- analytic features ----------------------------------------------------------
@@ -296,6 +299,10 @@ def calibrate_serve(
     dev = resolve_device(device)
     cfg = model.cfg
     paged.check_family(cfg)
+    if cfg.family not in PRICED_FAMILIES:
+        raise ValueError(
+            f"the priced serve twin covers the {PRICED_FAMILIES} families, "
+            f"not {cfg.family!r}: it has no terms for a recurrent state")
     if buckets is None:
         buckets = tuple(
             2**p for p in range(0, scfg.chunk.bit_length())

@@ -24,8 +24,14 @@ work.  :meth:`ServeEngine.warmup` runs every function the engine can
 dispatch once, so kernel builds and cuBLAS heuristics stay out of measured
 steps.  Serving runs under ``torch.inference_mode()``.
 
+A hybrid stack (Mamba-2 and attention mixers) keeps each slot's recurrent
+state in the pool beside the KV blocks (``serve.paged``): the engine passes
+a chunk's slot to the prefill and zeroes the slot's state when a request is
+admitted to it (``state_resets`` counts them).
+
 ``mesh`` (``repro_torch.dist.mesh.make_mesh((n,), ("serve",), device)``)
-slot-shards the decode batch as the JAX engine does: params and pool
+slot-shards the decode batch as the JAX engine does (not a hybrid stack's:
+its state pool is not sharded): params and pool
 replicated, each of the ``n`` ranks decoding its contiguous ``slots // n``
 lanes (``serve.paged.decode_slot_sharded``; the same tensors for ranks that
 share a card, a copy for a rank on another), prefill replicated.  The step
@@ -115,6 +121,11 @@ class ServeEngine:
         self.eos_id = eos_id
         self.mesh = mesh
         if mesh is not None:
+            if self.cfg.family == "hybrid":
+                raise ValueError(
+                    f"{self.cfg.name}: a slot-sharded engine does not serve "
+                    f"the hybrid family (its per-slot state pool is not "
+                    f"sharded)")
             paged.check_slot_sharding(slots, mesh)
         self.sched = ServeScheduler(self.serve_cfg)
         self.requests: dict[int, Request] = {}
@@ -123,6 +134,8 @@ class ServeEngine:
         # per-step records for the parity report / latency attribution
         self.step_log: list[tuple] = []
         self.step_durations: list[float] = []
+        # slots whose recurrent state was zeroed at admission (hybrid stacks)
+        self.state_resets = 0
 
         mb = self.serve_cfg.max_blocks_per_slot
         self._tables = np.full(
@@ -145,9 +158,10 @@ class ServeEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _prefill(self, toks, start: int, width: int, row):
+    def _prefill(self, toks, start: int, width: int, row, slot=None):
         """One chunk through the paged forward; ``toks`` and ``row`` are
-        device tensors (:meth:`_tensor`)."""
+        device tensors (:meth:`_tensor`); ``slot``: the request's (None in
+        the warm-up)."""
         if self._replicas is not None:
             return paged.prefill_replicated(
                 self._replicas, toks, start, width, row,
@@ -155,7 +169,7 @@ class ServeEngine:
             )
         return paged.prefill_chunk(
             self.params, self.pool, toks, start, width, row,
-            self.sched.scratch_block, self.cfg, self.serve_cfg,
+            self.sched.scratch_block, self.cfg, self.serve_cfg, slot=slot,
         )
 
     def _decode(self, toks, lengths, tables):
@@ -180,7 +194,8 @@ class ServeEngine:
         throwaway inputs, with their readbacks, so
         first-call costs (kernel builds, library heuristics) never land
         inside a measured step.  The dummy tables point at the scratch
-        block, whose contents are never read unmasked, so no request state
+        block, whose contents are never read unmasked, and a hybrid stack's
+        chunks run in the state pool's scratch lane, so no request state
         changes."""
         scfg = self.serve_cfg
         scratch = self.sched.scratch_block
@@ -248,6 +263,9 @@ class ServeEngine:
                 blocks = state.blocks
                 self._tables[slot] = scratch
                 self._tables[slot, : len(blocks)] = blocks
+                if "ssm" in self.pool:
+                    paged.reset_slot_state(self.pool, slot)
+                    self.state_resets += 1
 
         new_tokens: dict[int, int] = {}
         if plan.prefill is not None:
@@ -270,7 +288,7 @@ class ServeEngine:
                 row_t = self._tensor(self._tables[pf.slot])
             with prange("serve.prefill", device=False):
                 logits, self.pool = self._prefill(
-                    toks_t, pf.start, pf.width, row_t
+                    toks_t, pf.start, pf.width, row_t, pf.slot
                 )
             with prange("serve.readback", device=False):
                 if pf.final:

@@ -58,23 +58,43 @@ The write-then-gather order is kept: the chunk's own K/V are in the view it
 attends over.  The gather stays in PyTorch (a kernel that reads through the
 block table is later work).  The pool always stores ``cfg.compute_dtype``.
 
+**The hybrid family** (Mamba-2 and attention mixers, ``models/hybrid.py``)
+keeps two kinds of cache side by side.  The KV pool covers the attention
+layers alone, ``(n_attention_layers, num_blocks, block_size, K, hd)``, and a
+*state pool* ``pool["ssm"]`` holds each Mamba layer's recurrent state a
+slot, in the layout of ``models.mamba.init_mamba_cache``: conv tails
+``conv_x``/``conv_B``/``conv_C`` (n_mamba, slots + 1, w-1, ...) in the
+compute dtype and ``state`` (n_mamba, slots + 1, heads, d_state, head_dim)
+in fp32.  Lane ``slots`` is scratch: a prefill given no slot (the engine's
+warm-up) runs there.  :func:`prefill_chunk` continues the slot's state from
+chunk to chunk (``mamba_forward``'s ``conv_tails``/``init_state``; the
+bucket's right-padding has dt 0 and leaves both alone) and writes it back;
+:func:`decode_batch` steps every lane's state in place, and a lane that
+comes in with length 0 (idle, or its prompt still mid-prefill) keeps its
+state and tails as they were (``mamba_step``'s ``active``).
+:func:`reset_slot_state` zeroes a slot's state when a request is admitted.
+
 ``torch.profiler`` ranges (``obs.record.prange``): ``paged.kv_gather``
 around each layer's two gathers of the view, ``paged.head`` around the
-head's weight and logits in both functions; the MoE FFN is ``moe.ffn``.
+head's weight and logits in both functions, ``mamba.mixer`` around each
+Mamba layer's mixer (its state read and write-back included); the MoE FFN
+is ``moe.ffn``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models.sharding import P, shards
 from repro_torch.models.transformer import _ffn, head_weight, layer
 from repro_torch.obs.record import prange
 from repro_torch.serve.policy import ServeConfig
 from repro_torch.tree import tree_map
 
-SUPPORTED_FAMILIES = ("dense", "moe")
+SUPPORTED_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -86,18 +106,43 @@ def check_family(cfg: ArchConfig) -> None:
         )
 
 
+def attention_layers(cfg: ArchConfig) -> list[int]:
+    """The layers whose mixer is attention: every layer, or in the hybrid
+    family those at ``attn_offset`` of each period."""
+    if cfg.family != "hybrid":
+        return list(range(cfg.num_layers))
+    return [i for i in range(cfg.num_layers)
+            if i % cfg.attn_every == cfg.attn_offset]
+
+
 def init_pool(cfg: ArchConfig, scfg: ServeConfig, device) -> dict:
-    """Zero-initialized paged KV pool for every layer."""
+    """Zero-initialized paged KV pool for every attention layer; in the
+    hybrid family also the state pool of every Mamba layer (``"ssm"``,
+    ``slots + 1`` lanes, the last one scratch)."""
     shape = (
-        cfg.num_layers,
+        len(attention_layers(cfg)),
         scfg.resolved_num_blocks(),
         scfg.block_size,
         cfg.num_kv_heads,
         cfg.resolved_head_dim,
     )
     dt = L.dtype_of(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
+    pool = {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.family == "hybrid":
+        n_mamba = cfg.num_layers - len(attention_layers(cfg))
+        one = MB.init_mamba_cache(scfg.slots + 1, cfg, dt, device)
+        pool["ssm"] = {k: torch.zeros((n_mamba,) + tuple(v.shape),
+                                      dtype=v.dtype, device=device)
+                       for k, v in one.items()}
+    return pool
+
+
+def reset_slot_state(pool: dict, slot: int) -> None:
+    """Zero a slot's recurrent state in every Mamba layer (in place): a
+    request admitted to the slot starts from position 0."""
+    for t in pool["ssm"].values():
+        t[:, slot].zero_()
 
 
 def _paged_attention(attn_p, h, cfg, pool_k, pool_v, *, positions, write_bi,
@@ -125,31 +170,43 @@ def _paged_attention(attn_p, h, cfg, pool_k, pool_v, *, positions, write_bi,
     return torch.einsum("bqhk,hkd->bqd", out, attn_p["wo"].to(cdt))
 
 
-def _stack_forward(params, pool, tokens, cfg, *, positions, write_bi,
-                   write_off, tables, q_offset, kv_len):
+def _stack_forward(params, pool, tokens, cfg, *, mamba=None, **attn):
+    """Embedding, every layer and the final norm.  ``attn``: the keywords
+    of :func:`_paged_attention` past the pool layers; ``mamba(i, p, h)``:
+    the hybrid family's Mamba mixer of the i-th Mamba layer."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], tokens, cdt)
-    for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
+    rm = cfg.residual_multiplier
+    h = L.embed(params["embed"], tokens, cdt, cfg.embedding_multiplier)
+    if cfg.family == "hybrid":
+        layers = HY.stack_layers(params, cfg)
+    else:
+        layers = (("attn", i, layer(params["blocks"], i))
+                  for i in range(cfg.num_layers))
+    for mixer, i, bp in layers:
         n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
-        h = h + _paged_attention(
-            bp["attn"], n, cfg, pool["k"][i], pool["v"][i],
-            positions=positions, write_bi=write_bi, write_off=write_off,
-            tables=tables, q_offset=q_offset, kv_len=kv_len,
-        )
+        if mixer == "attn":
+            y = _paged_attention(bp["attn"], n, cfg, pool["k"][i],
+                                 pool["v"][i], **attn)
+        else:
+            with prange("mamba.mixer"):
+                y = mamba(i, bp["mamba"], n)
+        h = L.residual(h, y, rm)
         n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = h + _ffn(bp, n, cfg)[0]
+        h = L.residual(h, _ffn(bp, n, cfg)[0], rm)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
 
 
 def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
-                  scratch_block: int, cfg: ArchConfig, scfg: ServeConfig):
+                  scratch_block: int, cfg: ArchConfig, scfg: ServeConfig,
+                  slot: int | None = None):
     """One prompt chunk of one request through the whole stack.
 
     tokens: (1, bucket) int, right-padded with zeros beyond ``width``; the
     chunk covers prompt positions [start, start+width); table_row:
-    (max_blocks_per_slot,) int.  Returns (last-real-token logits (1, 1,
-    vocab), pool) — the pool is updated in place.
+    (max_blocks_per_slot,) int; slot: the request's slot, whose recurrent
+    state a hybrid stack continues (None: the scratch lane).  Returns
+    (last-real-token logits (1, 1, vocab), pool) — the pool is updated in
+    place.
     """
     dev = tokens.device
     bucket = tokens.shape[1]
@@ -163,8 +220,19 @@ def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
     write_bi = torch.where(real, blk, torch.full_like(blk, scratch_block))
     write_off = torch.where(real, pos % bs, torch.zeros_like(pos))
     rows = torch.full((1,), start, dtype=torch.int32, device=dev)
+    lane = scfg.slots if slot is None else slot
+
+    def mamba(i, p, n):
+        st = {k: v[i, lane:lane + 1] for k, v in pool["ssm"].items()}
+        y, new = MB.mamba_forward(
+            p, n, cfg, init_state=st["state"], length=width,
+            conv_tails={k: v for k, v in st.items() if k != "state"})
+        for k, v in new.items():
+            st[k].copy_(v)
+        return y
+
     h = _stack_forward(
-        params, pool, tokens, cfg, positions=pos[None, :],
+        params, pool, tokens, cfg, mamba=mamba, positions=pos[None, :],
         write_bi=write_bi, write_off=write_off,
         tables=table_row.to(torch.int64)[None],
         q_offset=rows, kv_len=torch.full_like(rows, scfg.view_len),
@@ -172,7 +240,8 @@ def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
     last = h[:, width - 1:width]
     with prange("paged.head"):
         w, transpose = head_weight(params, cfg)
-        logits = L.logits_head(w, last, transpose=transpose)
+        logits = L.logits_head(w, last, transpose=transpose,
+                               scaling=cfg.logits_scaling)
     return logits, pool
 
 
@@ -184,8 +253,9 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
     new token lands at position ``lengths[s]``); tables: (S,
     max_blocks_per_slot) int.  Inactive lanes must come in with length 0
     and an all-scratch table row — they compute garbage that only ever
-    writes to the scratch block.  Returns (logits (S, 1, vocab), pool) — the
-    pool is updated in place.
+    writes to the scratch block, and leave a hybrid stack's recurrent state
+    as it was.  Returns (logits (S, 1, vocab), pool) — the pool is updated
+    in place.
     """
     s = tokens.shape[0]
     bs = scfg.block_size
@@ -195,15 +265,25 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
                         lengths64 // bs]
     write_off = lengths64 % bs
     q_offset = lengths.to(torch.int32)
+    active = lengths64 > 0 if "ssm" in pool else None
+
+    def mamba(i, p, n):
+        st = {k: v[i, :s] for k, v in pool["ssm"].items()}
+        y, new = MB.mamba_step(p, n, cfg, st, active=active)
+        for k, v in new.items():
+            st[k].copy_(v)
+        return y
+
     h = _stack_forward(
-        params, pool, tokens, cfg, positions=lengths64[:, None],
+        params, pool, tokens, cfg, mamba=mamba, positions=lengths64[:, None],
         write_bi=write_bi, write_off=write_off, tables=tables64,
         q_offset=q_offset,
         kv_len=torch.full_like(q_offset, scfg.view_len),
     )
     with prange("paged.head"):
         w, transpose = head_weight(params, cfg)
-        logits = L.logits_head(w, h, transpose=transpose)
+        logits = L.logits_head(w, h, transpose=transpose,
+                               scaling=cfg.logits_scaling)
     return logits, pool
 
 

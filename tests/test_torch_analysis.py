@@ -333,8 +333,19 @@ def test_analyze_training_plan_matches(kw, model_graph):
     assert rep.ok == (kw.get("microbatches") != 6)
 
 
+@pytest.fixture
+def jax_archs(monkeypatch):
+    """The port's sweeps over the archs both packages register (the port
+    registers granite-4.0-h-small besides, which the JAX package has not
+    to compare with)."""
+    from repro.configs import base as jax_base
+    from repro_torch.configs import base as port_base
+
+    monkeypatch.setattr(port_base, "list_archs", jax_base.list_archs)
+
+
 @pytest.mark.parametrize("run_sim", [False, True])
-def test_analyze_all_configs_matches(run_sim):
+def test_analyze_all_configs_matches(run_sim, jax_archs):
     rep = _both(lambda ns: ns.A.analyze_all_configs(run_sim=run_sim,
                                                     seq=64))
     assert rep.ok and rep.metrics["plans_analyzed"] > 0
@@ -577,7 +588,7 @@ def test_collective_coverage_matches(tmp_path):
     assert "A005" in [f["code"] for f in doc["report"]["findings"]]
 
 
-def test_analyze_serve_entry_points_match():
+def test_analyze_serve_entry_points_match(jax_archs):
     rep = _both(lambda ns: ns.A.analyze_serve_trace(
         _trace(ns), ARCH, _scfg(ns), db=_db(ns)))
     assert rep.ok and rep.extras["coverage"][ARCH]["queries"]
@@ -695,7 +706,7 @@ def test_train_launcher_analyze_raises_on_a_bad_plan(capsys, tmp_path):
     assert "[netprof] all-reduce: 2 measured-fit" in out
 
 
-def test_analysis_cli_matches(tmp_path):
+def test_analysis_cli_matches(tmp_path, jax_archs):
     from repro.analysis.__main__ import main as jmain
     from repro_torch.analysis.__main__ import main as tmain
 

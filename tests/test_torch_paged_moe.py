@@ -69,8 +69,10 @@ def model_and_params():
     return model, model.init(torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", port_configs.list_archs())
+@pytest.mark.parametrize("arch", jax_configs.list_archs())
 def test_check_family_agrees_with_jax(arch):
+    """The port refuses what the JAX package refuses, except the hybrid
+    family, which the port's paged forward serves from a state pool."""
     for configs_of in (lambda c: c.get_config(arch),
                        lambda c: c.smoke_variant(c.get_config(arch))):
         jcfg, tcfg = configs_of(jax_configs), configs_of(port_configs)
@@ -79,12 +81,13 @@ def test_check_family_agrees_with_jax(arch):
             refused = False
         except ValueError:
             refused = True
-        if refused:
+        if refused and tcfg.family != "hybrid":
             with pytest.raises(ValueError, match=tcfg.family):
                 paged.check_family(tcfg)
         else:
             paged.check_family(tcfg)
-    assert paged.SUPPORTED_FAMILIES == jax_paged.SUPPORTED_FAMILIES
+    assert paged.SUPPORTED_FAMILIES == \
+        jax_paged.SUPPORTED_FAMILIES + ("hybrid",)
 
 
 @pytest.mark.parametrize("cfg_of", [
