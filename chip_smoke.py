@@ -26,7 +26,7 @@
 Phases, each printing one line of numbers:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build   — the three CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+2. build   — the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``
              with nvcc for sm_90a, in parallel, and each kernel function's
              registers, spills and static shared memory (``-Xptxas -v``);
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -311,8 +311,11 @@ cross-attention, its causal decoder and a decode step's cross-attention over
 kernels' dq, dk and dv at the same shapes (and the qwen3-moe EP step's) and
 at mask edges against the plain VJP in fp32 (``BWD_CASES``); prints the
 bf16 launch plans, and runs ``torch.library.opcheck`` on both ops on the
-card.  The kernel rows of every path hold their kernel against its plain
-version again; the flash rows of the train paths also time the backward
+card.  The row ``mamba_step@granite-decode`` holds the Mamba-2 decode
+step against its plain version at the granite serve cell's decode call
+(128 lanes x 128 heads, d_state 128, head_dim 64) and times it with every
+lane and with half of them stepping.  The kernel rows of every path hold
+their kernel against its plain version again; the flash rows of the train paths also time the backward
 kernels beside their bound and the plain VJP.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card, or
@@ -397,6 +400,13 @@ TRAIN = dict(seq=2048, batch=4, grad_accum=2, steps=3, seed=0)
 # The tokens come from their own seeded generator.
 SSM = dict(batch=2, prompt=512, decode=8, seed=1,
            tol={"bfloat16": 0.09, "float32": 1e-3})
+# the Mamba-2 decode step at the granite serve cell's decode call: lanes,
+# heads, groups, d_state, head_dim (bf16 inputs and weights, conv biases).
+# The state is held to 1e-5 of its norm (the update rounds as the plain
+# version does; the conv's and the readout's sums run in another order), y
+# to the bf16 tolerance of its scale
+MAMBA_STEP = dict(lanes=128, heads=128, groups=1, d_state=128, head_dim=64,
+                  state_tol=1e-5)
 # the SSD scan's bf16 kernels, by the bit that runs each alone
 SSD_STAGES = {"ssd_chunk_state_kernel": 1, "ssd_state_pass_kernel": 2,
               "ssd_chunk_out_kernel": 4}
@@ -2317,6 +2327,96 @@ def encdec_decode(dev, ctx: dict, failures: list) -> dict:
           compute="float32", max_abs_err=errs, logit_scale=scales,
           launches=launches)
     return launches
+
+
+def mamba_step_row(dev, gen, chip, failures: list, ptxas: dict) -> dict:
+    """The decode-step kernel at the granite serve cell's decode call
+    (``MAMBA_STEP``), every lane active and half of them, held against its
+    plain version (``ref.py`` on the card); bounds from ``cost`` at the
+    lanes that step.  No PyTorch call computes the step, so no library
+    time; launches are the benchmark's to count (18 a granite decode call,
+    one a Mamba layer)."""
+    from repro_torch.kernels.mamba_step.ops import cost as step_cost
+    from repro_torch.kernels.mamba_step.ops import mamba_step
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+
+    m = MAMBA_STEP
+    lanes, h, g, n, p = (m["lanes"], m["heads"], m["groups"], m["d_state"],
+                         m["head_dim"])
+    bf16 = torch.bfloat16
+
+    def rand(*shape, scale=1.0, dtype=bf16):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    prm = {"conv_x": rand(4, h, p, scale=0.5),
+           "conv_B": rand(4, g, n, scale=0.5),
+           "conv_C": rand(4, g, n, scale=0.5),
+           "conv_x_bias": rand(h, p, scale=0.1),
+           "conv_B_bias": rand(g, n, scale=0.1),
+           "conv_C_bias": rand(g, n, scale=0.1),
+           "A_log": torch.log(1 + 15 * torch.rand(h, generator=gen,
+                                                  device=dev)),
+           "dt_bias": torch.log(torch.expm1(
+               1e-3 + 0.1 * torch.rand(h, generator=gen, device=dev))),
+           "D_skip": torch.ones(h, device=dev)}
+    cache = {"conv_x": rand(lanes, 3, h, p), "conv_B": rand(lanes, 3, g, n),
+             "conv_C": rand(lanes, 3, g, n),
+             "state": rand(lanes, h, n, p, dtype=torch.float32)}
+    ins = (rand(lanes, h, p), rand(lanes, g, n), rand(lanes, g, n),
+           rand(lanes, h, scale=0.5, dtype=torch.float32))
+    every = torch.ones(lanes, dtype=torch.bool, device=dev)
+    half = torch.arange(lanes, device=dev) % 2 == 0
+    yr, _, sr = mamba_step_ref(*ins, cache, cache["state"], prm, half)
+    y, new = mamba_step(*ins, cache, prm, active=half)
+    err_state = float((new["state"].double() - sr.double()).norm()
+                      / sr.double().norm())
+    err_abs = max_err(y, yr)
+    err_y = err_abs / float(yr.float().abs().max())
+    if err_state > m["state_tol"] or err_y > BF16_TOL:
+        failures.append(f"mamba_step@granite-decode: state {err_state:.3g} "
+                        f"of its norm (limit {m['state_tol']}), y "
+                        f"{err_y:.3g} of its scale (limit {BF16_TOL})")
+    del yr, sr, new
+
+    def kern(active):
+        return lambda: mamba_step(*ins, cache, prm, active=active, out=cache)
+
+    bounds = {}
+    for key, k in (("every", lanes), ("half", lanes // 2)):
+        ops_, nbytes = step_cost(*(t[:k] for t in ins),
+                                 *(cache[c][:k] for c in ("conv_x", "conv_B",
+                                                          "conv_C", "state")),
+                                 *prm.values())
+        bounds[key] = bound_ms(chip, nbytes, ops_, FP32_FLOPS)
+    reg = next((f for f in ptxas.get("mamba_step", [])
+                if "mamba_step_kernel" in f["function"]
+                and ("__nv_bfloat16, __nv_bfloat16" in f["function"]
+                     or "I13__nv_bfloat16S" in f["function"])), {})
+    return {
+        "name": "mamba_step@granite-decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/mamba_step/csrc/mamba_step.cu",
+        "replaces": "none: the JAX package's models/mamba.py::mamba_step is "
+                    "plain jnp",
+        "launches": None, "launches_per_step": None,
+        "shape": f"{lanes} lanes x {h} heads, d_state {n}, head_dim {p}, "
+                 f"groups {g}; bf16 inputs and conv weights with biases, "
+                 f"fp32 state in place",
+        "max_abs_err": err_abs,
+        "state_rel_err": err_state, "y_rel_err": err_y,
+        "ms": cuda_ms(kern(every), iters=20),
+        "ms_half_active": cuda_ms(kern(half), iters=20),
+        "call_ms": call_ms(kern(every)),
+        "plain_ms": cuda_ms(lambda: mamba_step_ref(
+            *ins, cache, cache["state"], prm, every), iters=5),
+        "bound_ms": bounds["every"][0], "bound_by": bounds["every"][1],
+        "bound_ms_half_active": bounds["half"][0],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the decode step (the "
+                   "plain version is ~9 passes of einsums and elementwise "
+                   "ops over the state)",
+        "registers": reg.get("registers"),
+        "spill_stores": reg.get("spill_stores")}
 
 
 def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
@@ -4682,6 +4782,7 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
         "platform": platform, "dense": None, "moe": None}, failures)
     table.append(flash_train_row(dev, gen, platform.chip, "ep-train", None,
                                  None, failures, bwd=(None, None)))
+    table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
     return table + new_path_kernel_table(dev, gen, {
         "platform": platform, "ptxas": ptxas, "jamba": None, "encdec": None,
         "encdec_decode": None}, failures)
@@ -4734,7 +4835,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan"])
+    logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan",
+                             "mamba_step"])
     ptxas = ptxas_summary(logs)
     phase("build", seconds=time.perf_counter() - t0,
           flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
@@ -4901,6 +5003,8 @@ def main() -> int:
         "platform": platform, "ptxas": ptxas, "jamba": jamba_launches,
         "encdec": encdec_launches, "encdec_decode": encdec_decode_launches},
         failures)
+    table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
+    torch.cuda.empty_cache()
 
     # the "dots" remat, data and pipeline parallelism
     table += pp_phases(dev, gen, platform, dense_db, failures)

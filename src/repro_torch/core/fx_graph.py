@@ -23,9 +23,10 @@ the estimator maps (``core/estimator.py``):
 * everything else -> ``elementwise`` (transcendentals count 7 operations
   an element, as in the JAX package's HLO costing);
 * each hand-written kernel op (``repro_torch::ssd_scan``,
-  ``repro_torch::rmsnorm``, ``repro_torch::flash_attention``, and
+  ``repro_torch::rmsnorm``, ``repro_torch::flash_attention``,
   ``repro_torch::flash_attention_bwd``, the flash op's gradient for bf16
-  CUDA tensors) -> one ``custom-call`` node, the analog of one ``pallas_call``, with
+  CUDA tensors, and ``repro_torch::mamba_step``, the Mamba decode step)
+  -> one ``custom-call`` node, the analog of one ``pallas_call``, with
   ``meta["kernel"]`` its name, its operations and bytes from the op's own
   ``cost`` (the bound ``chip_smoke.py`` reports), and ``meta["call"]`` the
   argument specs the new-op profiler replays (a ``None`` mask stays
@@ -48,6 +49,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.mamba_step import ops as step_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -56,7 +58,8 @@ from repro_torch.tree import leaves, tree_map, unflatten_like
 # with the op's own positional arguments
 KERNEL_COSTS = {"ssd_scan": ssd_ops.cost, "rmsnorm": rms_ops.cost,
                 "flash_attention": fa_ops.cost,
-                "flash_attention_bwd": fa_ops.backward_cost}
+                "flash_attention_bwd": fa_ops.backward_cost,
+                "mamba_step": step_ops.cost}
 
 _VIEWS = {
     "view", "_unsafe_view", "reshape", "permute", "transpose", "t",

@@ -6,10 +6,13 @@ Each kernel package holds three pieces:
   ref.py    — the plain PyTorch version of the same function
 
 The TPU kernels they replace live in the JAX package under ``kernels/``;
-each of the three has its counterpart here.  The ops are registered with
+each of the three has its counterpart here.  ``mamba_step`` replaces no TPU
+kernel: it fuses the Mamba-2 decode step, plain ``jnp`` in the JAX package,
+whose state update is bound by bytes.  The ops are registered with
 ``torch.library`` (one traced node per launch, gradient through the plain
-version's VJP).
+version's VJP; the decode step has none).
 """
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: F401
+from repro_torch.kernels.mamba_step.ops import mamba_step  # noqa: F401
 from repro_torch.kernels.rmsnorm.ops import fused_rmsnorm  # noqa: F401
 from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: F401

@@ -165,7 +165,7 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     card's profiles); a fresh one by default."""
     from repro_torch.core.database import ProfileDB
     from repro_torch.core.estimator import OpTimeEstimator
-    from repro_torch.core.fx_graph import KERNEL_COSTS, step_summary
+    from repro_torch.core.fx_graph import step_summary
     from repro_torch.core.newop import NewOpProfiler
     from repro_torch.core.profiler import OfflineProfiler, calibrate_host
     from repro_torch.core.simulator import simulate
@@ -294,7 +294,7 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
         "graph_nodes": summary["nodes"], "graph_kinds": summary["kinds"],
         "graph_kernel_nodes": {k: sum(1 for n in graph.nodes
                                       if n.meta.get("kernel") == k)
-                               for k in KERNEL_COSTS},
+                               for k in counters},
         "kernel_launches_per_step": launches,
         "dot_flops": summary["dot_flops"],
         "dot_flops_by_dtype": dot_flops_by_dtype(graph),

@@ -3,7 +3,8 @@
 The torch counterpart of the JAX package's ``models/mamba.py`` (arXiv:2405.21060
 §6): within a chunk of Q tokens the token mixing is the quadratic masked form;
 across chunks an (n, p) state per head is carried by a linear recurrence.
-Decode is the O(1) recurrent state update.
+Decode is the O(1) recurrent state update, one call of the decode-step
+kernel op (:mod:`repro_torch.kernels.mamba_step.ops`) a token.
 
 The chunked scan is the SSD-scan kernel op
 (:func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`): on a CUDA tensor it
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.mamba_step import ops as step_ops
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models.layers import _init_dense, dtype_of, proj
 from repro_torch.models.sharding import rank_view
@@ -115,14 +117,21 @@ def _causal_depthwise_conv(x, kernel, tail=None, bias=None, length=None):
     return F.silu(y).to(x.dtype), new_tail
 
 
-def _project(p, x, cfg: ArchConfig):
-    """x: (B,S,D) -> z, xh, B_, C_, dt  (pre-conv, pre-activation)."""
+def _project_raw(p, x, cfg: ArchConfig):
+    """x: (B,S,D) -> z, xh, B_, C_, dt  (pre-conv; dt before its bias and
+    softplus)."""
     cdt = dtype_of(cfg.compute_dtype)
     z = proj(x, p["wz"].to(cdt))
     xh = proj(x, p["wx"].to(cdt))
     B_ = proj(x, p["wB"].to(cdt))
     C_ = proj(x, p["wC"].to(cdt))
     dt = proj(x.float(), p["wdt"].float())
+    return z, xh, B_, C_, dt
+
+
+def _project(p, x, cfg: ArchConfig):
+    """x: (B,S,D) -> z, xh, B_, C_, dt  (pre-conv, pre-activation)."""
+    z, xh, B_, C_, dt = _project_raw(p, x, cfg)
     dt = F.softplus(dt + p["dt_bias"])  # (B,S,nh) fp32, >= 0
     return z, xh, B_, C_, dt
 
@@ -242,49 +251,24 @@ MAMBA_CACHE_AXES = {
 }
 
 
-def mamba_step(p, x, cfg: ArchConfig, cache, *, active=None):
+def mamba_step(p, x, cfg: ArchConfig, cache, *, active=None, state_out=None):
     """Single-token decode. x: (B,1,D) -> (y, new_cache). O(1) in history.
 
-    active: optional (B,) bool, the lanes that step; the others' dt is 0, so
-    their state comes back as it came in (decay 1, no input), and so do
-    their conv tails."""
-    _, _, nh = mamba_dims(cfg)
-    nh = rank_view().heads(p["wx"].shape[1], nh)   # a dry-run rank's share
+    The recurrent core, from the conv steps to the D skip, is one call of
+    the decode-step kernel op (:func:`repro_torch.kernels.mamba_step.ops.
+    mamba_step`); the projections before it and the gate, gated norm and
+    ``wo`` after it are plain.  active: optional (B,) bool, the lanes that
+    step; the others keep their state and conv tails as they came in (their
+    output is zero).  state_out: the tensor the new state is
+    written to, and then the cache's conv tails step in place (the paged
+    engine passes its state pool's lanes, ``cache["state"]`` itself);
+    None: a fresh state and fresh tails, the cache left as it came."""
     cdt = dtype_of(cfg.compute_dtype)
-    z, xh, B_, C_, dt = _project(p, x, cfg)  # all (B,1,...)
-
-    def conv_step(tail, new, kernel, bias):
-        window = torch.cat([tail.to(new.dtype), new], dim=1)  # (B,w,...)
-        # contiguous: on CUDA the einsum can return the lanes innermost, and
-        # x's layout then passes to the outer product below, whose add over
-        # the (B, heads, d_state, head_dim) state then runs ~9x slower
-        y = torch.einsum("bw...,w...->b...", window.float(),
-                         kernel.float()).contiguous()[:, None]
-        if bias is not None:
-            y = y + bias.float()
-        new_tail = window[:, 1:]
-        if active is not None:
-            keep = active.view((-1,) + (1,) * (tail.dim() - 1))
-            new_tail = torch.where(keep, new_tail, tail.to(new.dtype))
-        return F.silu(y).to(new.dtype), new_tail
-
-    xh, tx = conv_step(cache["conv_x"], xh, p["conv_x"], p.get("conv_x_bias"))
-    B_, tb = conv_step(cache["conv_B"], B_, p["conv_B"], p.get("conv_B_bias"))
-    C_, tc = conv_step(cache["conv_C"], C_, p["conv_C"], p.get("conv_C_bias"))
-    B_h = _expand_groups(B_, nh)[:, 0]  # (B,nh,ds)
-    C_h = _expand_groups(C_, nh)[:, 0]
-    xh1 = xh[:, 0]  # (B,nh,hd)
-    dt1 = dt[:, 0]  # (B,nh)
-    if active is not None:
-        dt1 = dt1 * active[:, None]
-    A = -torch.exp(p["A_log"])
-    decay = torch.exp(dt1 * A)  # (B,nh)
-    st = cache["state"] * decay[:, :, None, None] + torch.einsum(
-        "bhn,bhp->bhnp", B_h.float() * dt1[..., None], xh1.float()
-    )
-    y = torch.einsum("bhn,bhnp->bhp", C_h.float(), st)
-    y = y + xh1.float() * p["D_skip"][None, :, None]
+    z, xh, B_, C_, dt = _project_raw(p, x, cfg)  # all (B,1,...)
+    out = None if state_out is None else dict(cache, state=state_out)
+    y, new = step_ops.mamba_step(xh[:, 0], B_[:, 0], C_[:, 0], dt[:, 0],
+                                 cache, p, active=active, out=out)
     y = y[:, None].to(cdt) * F.silu(z)
     y = _gated_norm(y, p["norm"], cfg)
     out = proj(y, p["wo"].to(cdt), 2)
-    return out, {"conv_x": tx, "conv_B": tb, "conv_C": tc, "state": st}
+    return out, new

@@ -69,15 +69,18 @@ in fp32.  Lane ``slots`` is scratch: a prefill given no slot (the engine's
 warm-up) runs there.  :func:`prefill_chunk` continues the slot's state from
 chunk to chunk (``mamba_forward``'s ``conv_tails``/``init_state``; the
 bucket's right-padding has dt 0 and leaves both alone) and writes it back;
-:func:`decode_batch` steps every lane's state in place, and a lane that
-comes in with length 0 (idle, or its prompt still mid-prefill) keeps its
-state and tails as they were (``mamba_step``'s ``active``).
+:func:`decode_batch` steps every lane's state in place (``mamba_step``'s
+``state_out``: the decode-step kernel reads and writes the pool's state
+once), and a lane that comes in with length 0 (idle, or its prompt still
+mid-prefill) keeps its state and tails as they were (``mamba_step``'s
+``active``).
 :func:`reset_slot_state` zeroes a slot's state when a request is admitted.
 
 ``torch.profiler`` ranges (``obs.record.prange``): ``paged.kv_gather``
 around each layer's two gathers of the view, ``paged.head`` around the
 head's weight and logits in both functions, ``mamba.mixer`` around each
-Mamba layer's mixer (its state read and write-back included); the MoE FFN
+Mamba layer's mixer (its state read and write-back included: in a
+decode call, the decode-step kernel); the MoE FFN
 is ``moe.ffn``.
 """
 from __future__ import annotations
@@ -268,10 +271,11 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
     active = lengths64 > 0 if "ssm" in pool else None
 
     def mamba(i, p, n):
+        # the pool's lanes step in place: the state by the kernel itself,
+        # no temporary of its size and no copy back
         st = {k: v[i, :s] for k, v in pool["ssm"].items()}
-        y, new = MB.mamba_step(p, n, cfg, st, active=active)
-        for k, v in new.items():
-            st[k].copy_(v)
+        y, _ = MB.mamba_step(p, n, cfg, st, active=active,
+                             state_out=st["state"])
         return y
 
     h = _stack_forward(

@@ -984,3 +984,192 @@ def test_bench_gate_executor_rows_on_card(dev):
     assert loss["launches"]["rmsnorm"] > 0
     assert np.isfinite(loss["value"])
     assert grad["value"] <= 5e-4
+
+
+def _mamba_step_case(dev, gen, lanes, h, g, n, p, dtype, wdtype, bias):
+    """Inputs of one decode step at a shape: the projections, raw dt, the
+    cache, and the mixer's parameters as the model inits them (A_log, dt_bias
+    as Mamba-2 draws them: A in [1, 16], dt in [0.001, 0.1])."""
+    def rand(*shape, dt=dtype, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+
+    def unif(lo, hi, k):
+        return lo + (hi - lo) * torch.rand(k, generator=gen, device=dev)
+
+    w = 4
+    prm = {"conv_x": rand(w, h, p, dt=wdtype, scale=0.5),
+           "conv_B": rand(w, g, n, dt=wdtype, scale=0.5),
+           "conv_C": rand(w, g, n, dt=wdtype, scale=0.5),
+           "A_log": torch.log(unif(1.0, 16.0, h)),
+           "dt_bias": torch.log(torch.expm1(unif(1e-3, 0.1, h))),
+           "D_skip": unif(0.5, 1.5, h)}
+    if bias:
+        prm.update(conv_x_bias=rand(h, p, dt=wdtype, scale=0.1),
+                   conv_B_bias=rand(g, n, dt=wdtype, scale=0.1),
+                   conv_C_bias=rand(g, n, dt=wdtype, scale=0.1))
+    cache = {"conv_x": rand(lanes, w - 1, h, p),
+             "conv_B": rand(lanes, w - 1, g, n),
+             "conv_C": rand(lanes, w - 1, g, n),
+             "state": rand(lanes, h, n, p, dt=torch.float32)}
+    return prm, cache
+
+
+def _mamba_step_inputs(dev, gen, lanes, h, g, n, p, dtype):
+    return (torch.randn(lanes, h, p, generator=gen, device=dev).to(dtype),
+            torch.randn(lanes, g, n, generator=gen, device=dev).to(dtype),
+            torch.randn(lanes, g, n, generator=gen, device=dev).to(dtype),
+            0.5 * torch.randn(lanes, h, generator=gen, device=dev))
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+# (lanes, heads, groups, d_state, head_dim, inputs, conv weights, bias): the
+# smoke variants' widths, two groups, a head_dim that is not a power of two,
+# granite's widths in fp32 and with fp32 weights (mamba2's)
+MAMBA_STEP_SHAPES = {
+    "smoke 16/16 fp32": (5, 16, 1, 16, 16, torch.float32, torch.float32,
+                         False),
+    "groups 2, 32/32 bf16": (7, 8, 2, 32, 32, torch.bfloat16,
+                             torch.bfloat16, True),
+    "head_dim 48, d_state 96": (3, 4, 1, 96, 48, torch.bfloat16,
+                                torch.bfloat16, True),
+    "128/64 fp32": (4, 8, 1, 128, 64, torch.float32, torch.float32, True),
+    "128/64 bf16, fp32 weights": (4, 8, 1, 128, 64, torch.bfloat16,
+                                  torch.float32, False),
+}
+
+
+@pytest.mark.parametrize("case", list(MAMBA_STEP_SHAPES))
+def test_mamba_step_kernel_matches_plain_version(dev, case):
+    """One step at each shape, lane 1 inactive, out of place and in place.
+    The state: 1e-5 of its norm (the update's roundings are the plain
+    version's; its inputs, the conv's outputs rounded to the inputs' dtype,
+    can round apart where the conv's four terms, summed in another order,
+    land on a rounding tie).  y: the dtype's kernel tolerance, of its scale
+    (the readout's sum over d_state runs in another order)."""
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+
+    lanes, h, g, n, p, dtype, wdtype, bias = MAMBA_STEP_SHAPES[case]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prm, cache = _mamba_step_case(dev, gen, lanes, h, g, n, p, dtype,
+                                  wdtype, bias)
+    ins = _mamba_step_inputs(dev, gen, lanes, h, g, n, p, dtype)
+    active = torch.ones(lanes, dtype=torch.bool, device=dev)
+    active[1] = False
+    yr, tails, sr = mamba_step_ref(*ins, cache, cache["state"], prm, active)
+    want = dict(tails, state=sr)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    n0 = ops.LAUNCHES.count
+    y, new = ops.mamba_step(*ins, cache, prm, active=active)
+    inplace = {k: v.clone() for k, v in cache.items()}
+    y2, _ = ops.mamba_step(*ins, inplace, prm, active=active, out=inplace)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES.count == n0 + 2
+    for got_y, got in ((y, new), (y2, inplace)):
+        torch.testing.assert_close(got_y.float(), yr.float(), rtol=tol,
+                                   atol=tol * float(yr.abs().max()))
+        assert _rel(got["state"], want["state"]) <= 1e-5
+        assert torch.equal(got["state"][1], cache["state"][1])
+        for k in ("conv_x", "conv_B", "conv_C"):
+            assert torch.equal(got[k], want[k]), k
+    assert torch.count_nonzero(y[1]) == 0
+
+
+def test_mamba_step_kernel_chained_at_the_granite_cell_shape(dev):
+    """The granite serve cell's decode call: 128 lanes x 128 heads, d_state
+    128, head_dim 64, bf16 inputs and weights with conv biases, a third of
+    the lanes inactive, 64 steps chained in place (the engine's way) against
+    the plain version chained out of place.  The state within 1e-5 of its
+    norm (see above: the roundings of the update are the plain version's,
+    the conv's and the readout's sums run in another order); y within the
+    bf16 tolerance of its scale; inactive lanes' state bit-identical."""
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.kernels.mamba_step.ref import mamba_step_ref
+
+    lanes, h, g, n, p = 128, 128, 1, 128, 64
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prm, cache = _mamba_step_case(dev, gen, lanes, h, g, n, p,
+                                  torch.bfloat16, torch.bfloat16, True)
+    active = torch.arange(lanes, device=dev) % 3 != 0
+    start = cache["state"].clone()
+    plain = {k: v.clone() for k, v in cache.items()}
+    worst = 0.0
+    with torch.inference_mode():
+        for _ in range(64):
+            ins = _mamba_step_inputs(dev, gen, lanes, h, g, n, p,
+                                     torch.bfloat16)
+            yr, tails, sr = mamba_step_ref(*ins, plain, plain["state"], prm,
+                                           active)
+            plain = dict(tails, state=sr)
+            y, _ = ops.mamba_step(*ins, cache, prm, active=active, out=cache)
+            torch.testing.assert_close(y.float(), yr.float(), rtol=2e-2,
+                                       atol=2e-2 * float(yr.abs().max()))
+            worst = max(worst, _rel(cache["state"][active],
+                                    plain["state"][active]))
+    assert worst <= 1e-5, worst
+    assert torch.equal(cache["state"][~active], start[~active])
+    for k in ("conv_x", "conv_B", "conv_C"):
+        assert torch.equal(cache[k], plain[k]), k
+
+
+def test_granite_decode_call_launches_one_step_a_mamba_layer(dev):
+    """granite-4.0-h-small at full width, 4 layers (Mamba at 0 and 2,
+    attention at 1 and 3): a chunk call launches no decode step, a decode
+    call one a Mamba layer, and lanes of length 0 keep their state."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import paged
+    from repro_torch.serve.policy import ServeConfig
+
+    cfg = dataclasses.replace(get_config("granite-4.0-h-small"),
+                              num_layers=4, attn_every=2, attn_offset=1)
+    n_mamba = cfg.num_layers - len(paged.attention_layers(cfg))
+    assert n_mamba == 2
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(slots=4, max_len=64, block_size=16, chunk=16)
+    pool = paged.init_pool(cfg, scfg, dev)
+    tables = torch.arange(scfg.slots * scfg.max_blocks_per_slot,
+                          dtype=torch.int32, device=dev).view(scfg.slots, -1)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 16), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.inference_mode():
+        n0 = ops.LAUNCHES.count
+        paged.prefill_chunk(params, pool, prompt.to(torch.int32), 0, 16,
+                            tables[0], 0, cfg, scfg, slot=0)
+        assert ops.LAUNCHES.count == n0
+        idle = pool["ssm"]["state"][:, 1:scfg.slots].clone()
+        lengths = torch.tensor([16, 0, 0, 0], dtype=torch.int32, device=dev)
+        logits, _ = paged.decode_batch(
+            params, pool, torch.full((scfg.slots, 1), 7, dtype=torch.int32,
+                                     device=dev), lengths, tables, cfg, scfg)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES.count == n0 + n_mamba
+    assert torch.isfinite(logits[0]).all()
+    assert torch.equal(pool["ssm"]["state"][:, 1:scfg.slots], idle)
+
+
+def test_qwen3_paged_decode_launches_no_mamba_step(dev):
+    from repro_torch.configs.base import get_config, smoke_variant
+    from repro_torch.kernels.mamba_step import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import paged
+    from repro_torch.serve.policy import ServeConfig
+
+    cfg = dataclasses.replace(smoke_variant(get_config("qwen3-moe-235b-a22b")),
+                              num_layers=2)
+    params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(slots=2, max_len=32, block_size=8, chunk=8)
+    pool = paged.init_pool(cfg, scfg, dev)
+    tables = torch.zeros((2, scfg.max_blocks_per_slot), dtype=torch.int32,
+                         device=dev)
+    n0 = ops.LAUNCHES.count
+    with torch.inference_mode():
+        paged.decode_batch(params, pool, torch.ones((2, 1), dtype=torch.int32,
+                                                    device=dev),
+                           torch.tensor([3, 0], dtype=torch.int32, device=dev),
+                           tables, cfg, scfg)
+    assert ops.LAUNCHES.count == n0
