@@ -18,6 +18,8 @@ prefill and reuses them at every decode step.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -27,6 +29,8 @@ from repro_torch.models.transformer import (
     _remat,
     _stack,
     head_weight,
+    logits,
+    prenorm_layer,
     unbind_layers,
 )
 
@@ -98,11 +102,8 @@ def encode(params, frames, cfg: ArchConfig):
     positions = _positions(h.shape[0], h.shape[1], h.device)
 
     def body(hh, lp):
-        n = L.rmsnorm(hh, lp["norm1"], cfg.norm_eps, cdt)
-        hh = hh + L.attention(lp["attn"], n, cfg, positions=positions,
-                              bidirectional=True)
-        n = L.rmsnorm(hh, lp["norm2"], cfg.norm_eps, cdt)
-        return hh + L.mlp(lp["mlp"], n, cdt)
+        return prenorm_layer(lp, hh, cfg, ("norm1", lambda n: L.attention(
+            lp["attn"], n, cfg, positions=positions, bidirectional=True)))[0]
 
     body = _remat(body, cfg)
     for lp in unbind_layers(params["encoder"]):
@@ -111,17 +112,14 @@ def encode(params, frames, cfg: ArchConfig):
 
 
 def _decoder_stack(params, h, memory, cfg: ArchConfig, *, positions):
-    cdt = L.dtype_of(cfg.compute_dtype)
-
     def body(hh, lp, mem):
-        n = L.rmsnorm(hh, lp["norm1"], cfg.norm_eps, cdt)
-        hh = hh + L.attention(lp["self"], n, cfg, positions=positions)
-        n = L.rmsnorm(hh, lp["norm2"], cfg.norm_eps, cdt)
-        ckv = L.cross_kv_from_memory(lp["cross"], mem, cfg)
-        hh = hh + L.attention(lp["cross"], n, cfg, positions=positions,
-                              cross_kv=ckv)
-        n = L.rmsnorm(hh, lp["norm3"], cfg.norm_eps, cdt)
-        return hh + L.mlp(lp["mlp"], n, cdt)
+        def cross(n):
+            ckv = L.cross_kv_from_memory(lp["cross"], mem, cfg)
+            return L.attention(lp["cross"], n, cfg, positions=positions,
+                               cross_kv=ckv)
+
+        return prenorm_layer(lp, hh, cfg, ("norm1", lambda n: L.attention(
+            lp["self"], n, cfg, positions=positions)), ("norm2", cross))[0]
 
     body = _remat(body, cfg)
     for lp in unbind_layers(params["decoder"]):
@@ -132,16 +130,14 @@ def _decoder_stack(params, h, memory, cfg: ArchConfig, *, positions):
 def loss_fn(params, batch, cfg: ArchConfig):
     """batch: frames (B, S_src, F), tokens (B, S_tgt), labels (B, S_tgt).
     Returns (ce, {"ce", "aux"}); the aux loss is zero."""
-    cdt = L.dtype_of(cfg.compute_dtype)
     memory = encode(params, batch["frames"], cfg)
     tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens, cdt)
+    h = L.embed(params["embed"], tokens, cfg)
     h = _decoder_stack(params, h, memory, cfg,
                        positions=_positions(*tokens.shape, tokens.device))
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    ce = L.chunked_xent(h, w, batch["labels"], transpose=transpose,
-                        chunk=cfg.loss_chunk)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
+    w, kw = head_weight(params, cfg)
+    ce = L.chunked_xent(h, w, batch["labels"], chunk=cfg.loss_chunk, **kw)
     return ce, {"ce": ce,
                 "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
 
@@ -183,45 +179,47 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, frames=None):
             f"cross-attention cache holds source_len = {cfg.source_len}")
     cdt = L.dtype_of(cfg.compute_dtype)
     memory = encode(params, frames, cfg)
-    h = L.embed(params["embed"], tokens, cdt)
+    h = L.embed(params["embed"], tokens, cfg)
     positions = _positions(*tokens.shape, tokens.device)
     cache = init_cache(tokens.shape[0], max_len, cfg, cdt, tokens.device)
-    for i, lp in enumerate(unbind_layers(params["decoder"])):
-        self_cache = {k: v[i] for k, v in cache["self"].items()}
-        n = L.rmsnorm(h, lp["norm1"], cfg.norm_eps, cdt)
-        a, _ = L.attention_prefill(lp["self"], n, cfg, positions=positions,
-                                   cache=self_cache)
-        h = h + a
-        n = L.rmsnorm(h, lp["norm2"], cfg.norm_eps, cdt)
-        ck, cv = L.cross_kv_from_memory(lp["cross"], memory, cfg)
+
+    def attn(p, self_cache, n):
+        return L.attention_prefill(p, n, cfg, positions=positions,
+                                   cache=self_cache)[0]
+
+    def cross(p, i, n):
+        ck, cv = L.cross_kv_from_memory(p, memory, cfg)
         cache["cross"]["k"][i] = ck
         cache["cross"]["v"][i] = cv
-        h = h + L.attention(lp["cross"], n, cfg, positions=positions,
-                            cross_kv=(ck, cv))
-        n = L.rmsnorm(h, lp["norm3"], cfg.norm_eps, cdt)
-        h = h + L.mlp(lp["mlp"], n, cdt)
+        return L.attention(p, n, cfg, positions=positions, cross_kv=(ck, cv))
+
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
+        self_cache = {k: v[i] for k, v in cache["self"].items()}
+        h, _ = prenorm_layer(lp, h, cfg,
+                             ("norm1", partial(attn, lp["self"], self_cache)),
+                             ("norm2", partial(cross, lp["cross"], i)))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose), cache
+    return logits(params, h[:, -1:], cfg), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
     """token: (B,1) integer.  Returns (logits, cache); the self-attention
     cache is updated in place, the cross K/V are read."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], token, cdt)
-    for i, lp in enumerate(unbind_layers(params["decoder"])):
-        n = L.rmsnorm(h, lp["norm1"], cfg.norm_eps, cdt)
-        a, _ = L.attention_decode(
-            lp["self"], n, cfg,
-            cache={k: v[i] for k, v in cache["self"].items()},
-            cache_len=cache_len)
-        h = h + a
-        n = L.rmsnorm(h, lp["norm2"], cfg.norm_eps, cdt)
+    h = L.embed(params["embed"], token, cfg)
+
+    def attn(p, i, n):
+        return L.attention_decode(
+            p, n, cfg, cache={k: v[i] for k, v in cache["self"].items()},
+            cache_len=cache_len)[0]
+
+    def cross(p, i, n):
         ckv = (cache["cross"]["k"][i].to(cdt), cache["cross"]["v"][i].to(cdt))
-        h = h + L.attention(lp["cross"], n, cfg, positions=None, cross_kv=ckv)
-        n = L.rmsnorm(h, lp["norm3"], cfg.norm_eps, cdt)
-        h = h + L.mlp(lp["mlp"], n, cdt)
+        return L.attention(p, n, cfg, positions=None, cross_kv=ckv)
+
+    for i, lp in enumerate(unbind_layers(params["decoder"])):
+        h, _ = prenorm_layer(lp, h, cfg,
+                             ("norm1", partial(attn, lp["self"], i)),
+                             ("norm2", partial(cross, lp["cross"], i)))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose), cache
+    return logits(params, h, cfg), cache

@@ -12,6 +12,8 @@ homogeneous mixer-only layers stacked on a leading ``layers`` axis.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -19,12 +21,13 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import (
-    _ffn,
     _prefix_layers,
     _remat,
     _stack,
     head_weight,
     layer,
+    logits,
+    prenorm_layer,
     shared_width,
     unbind_layers,
 )
@@ -133,6 +136,14 @@ def stack_layers(params: dict, cfg: ArchConfig):
             seen[mixer] += 1
 
 
+def _kept(states: list, out):
+    """A Mamba mixer's ``(y, state)`` as a layer's branch: appends the
+    state to ``states`` and returns y."""
+    y, st = out
+    states.append(st)
+    return y
+
+
 def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
                      decode_len=None):
     """Apply one interleave period.
@@ -143,40 +154,25 @@ def apply_superblock(p, x, cfg: ArchConfig, *, positions, caches=None,
     place.  Returns (x, aux, new_caches), new_caches {"kv", "ssm"} with the
     mamba layers' new states stacked, or None without caches.
     """
-    cdt, rm = cfg.compute_dtype, cfg.residual_multiplier
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_ssm = []
+    if caches is None:
+        attn = lambda ap, i, h: L.attention(ap, h, cfg, positions=positions)
+        mamba = lambda mp, i, h: MB.mamba_forward(mp, h, cfg)[0]
+    elif decode_len is None:
+        attn = lambda ap, i, h: L.attention_prefill(
+            ap, h, cfg, positions=positions, cache=caches["kv"])[0]
+        mamba = lambda mp, i, h: _kept(new_ssm, MB.mamba_forward(mp, h, cfg))
+    else:
+        attn = lambda ap, i, h: L.attention_decode(
+            ap, h, cfg, cache=caches["kv"], cache_len=decode_len)[0]
+        mamba = lambda mp, i, h: _kept(new_ssm, MB.mamba_step(
+            mp, h, cfg, {k: v[i] for k, v in caches["ssm"].items()}))
     for mixer, i, sp in period_layers(p, cfg):
-        h = L.rmsnorm(x, sp["norm1"], cfg.norm_eps, cdt)
-        if mixer == "attn":
-            ap = sp["attn"]
-            if caches is None:
-                y = L.attention(ap, h, cfg, positions=positions)
-            elif decode_len is None:
-                y, _ = L.attention_prefill(ap, h, cfg, positions=positions,
-                                           cache=caches["kv"])
-            else:
-                y, _ = L.attention_decode(ap, h, cfg, cache=caches["kv"],
-                                          cache_len=decode_len)
-        else:
-            mp = sp["mamba"]
-            if caches is None:
-                y, _ = MB.mamba_forward(mp, h, cfg)
-            elif decode_len is None:
-                y, st = MB.mamba_forward(mp, h, cfg)
-                new_ssm.append(st)
-            else:
-                y, st = MB.mamba_step(
-                    mp, h, cfg, {k: v[i] for k, v in caches["ssm"].items()})
-                new_ssm.append(st)
-        x = L.residual(x, y, rm)
-        if "moe" not in sp and "mlp" not in sp:
-            continue
-        h = L.rmsnorm(x, sp["norm2"], cfg.norm_eps, cdt)
-        y, a = _ffn(sp, h, cfg)
+        fn = partial(attn if mixer == "attn" else mamba, sp[mixer], i)
+        x, a = prenorm_layer(sp, x, cfg, ("norm1", fn))
         if "moe" in sp:
             aux = aux + a
-        x = L.residual(x, y, rm)
     new_caches = None
     if caches is not None:
         new_caches = {"kv": caches["kv"], "ssm": _stack(new_ssm)}
@@ -239,11 +235,9 @@ def run_stack(params, x, cfg: ArchConfig, *, positions):
     the hybrid stack, zero for the SSM stack."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-
         def body(h, bp):
-            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cfg.compute_dtype)
-            y, _ = MB.mamba_forward(bp["mixer"], n, cfg)
-            return L.residual(h, y, cfg.residual_multiplier)
+            return prenorm_layer(bp, h, cfg, ("norm", lambda n: (
+                MB.mamba_forward(bp["mixer"], n, cfg)[0])))[0]
 
         body = _remat(body, cfg)
         for bp in unbind_layers(params["blocks"]):
@@ -267,17 +261,12 @@ def _positions(tokens):
 
 
 def loss_fn(params, batch, cfg: ArchConfig):
-    cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], batch["tokens"], cdt,
-                cfg.embedding_multiplier)
+    h = L.embed(params["embed"], batch["tokens"], cfg)
     positions = None if cfg.family == "ssm" else _positions(batch["tokens"])
     h, aux = run_stack(params, h, cfg, positions=positions)
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    ce = L.chunked_xent(
-        h, w, batch["labels"], transpose=transpose, chunk=cfg.loss_chunk,
-        scaling=cfg.logits_scaling,
-    )
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
+    w, kw = head_weight(params, cfg)
+    ce = L.chunked_xent(h, w, batch["labels"], chunk=cfg.loss_chunk, **kw)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -318,14 +307,13 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
     KV caches written in place and its SSM states those of the prompt.
     """
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], tokens, cdt, cfg.embedding_multiplier)
+    h = L.embed(params["embed"], tokens, cfg)
     caches = []
     if cfg.family == "ssm":
+        mamba = lambda mp, n: _kept(caches, MB.mamba_forward(mp, n, cfg))
         for bp in unbind_layers(params["blocks"]):
-            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
-            y, st = MB.mamba_forward(bp["mixer"], n, cfg)
-            h = L.residual(h, y, cfg.residual_multiplier)
-            caches.append(st)
+            h, _ = prenorm_layer(bp, h, cfg,
+                                 ("norm", partial(mamba, bp["mixer"])))
         cache = _stack(caches)
     else:
         positions = _positions(tokens)
@@ -338,24 +326,20 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int):
             caches.append(new["ssm"])
         cache = {"kv": cache["kv"], "ssm": _stack(caches)}
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose,
-                         scaling=cfg.logits_scaling), cache
+    return logits(params, h[:, -1:], cfg), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
     """token: (B,1) integer.  Returns (logits, new cache); the hybrid KV
     caches are updated in place."""
-    cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], token, cdt, cfg.embedding_multiplier)
+    h = L.embed(params["embed"], token, cfg)
     caches = []
     if cfg.family == "ssm":
+        mamba = lambda mp, i, n: _kept(caches, MB.mamba_step(
+            mp, n, cfg, {k: v[i] for k, v in cache.items()}))
         for i, bp in enumerate(unbind_layers(params["blocks"])):
-            n = L.rmsnorm(h, bp["norm"], cfg.norm_eps, cdt)
-            y, st = MB.mamba_step(bp["mixer"], n, cfg,
-                                  {k: v[i] for k, v in cache.items()})
-            h = L.residual(h, y, cfg.residual_multiplier)
-            caches.append(st)
+            h, _ = prenorm_layer(bp, h, cfg,
+                                 ("norm", partial(mamba, bp["mixer"], i)))
         new_cache = _stack(caches)
     else:
         for i, bp in enumerate(unbind_layers(params["blocks"])):
@@ -365,7 +349,5 @@ def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
                                          caches=cache_in, decode_len=cache_len)
             caches.append(new["ssm"])
         new_cache = {"kv": cache["kv"], "ssm": _stack(caches)}
-    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose,
-                         scaling=cfg.logits_scaling), new_cache
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
+    return logits(params, h, cfg), new_cache

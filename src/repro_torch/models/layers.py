@@ -431,19 +431,16 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype):
 EMBED_AXES = ("vocab", "embed")
 
 
-def embed(emb, tokens, compute_dtype, multiplier: float = 1.0):
-    """The tokens' rows in the compute dtype, times ``multiplier``."""
-    return scaled(emb[tokens].to(dtype_of(compute_dtype)), multiplier)
+def embed(emb, tokens, cfg):
+    """The tokens' rows in the compute dtype, times
+    ``cfg.embedding_multiplier``."""
+    return scaled(emb[tokens].to(dtype_of(cfg.compute_dtype)),
+                  cfg.embedding_multiplier)
 
 
 def scaled(x, multiplier: float):
     """``x * multiplier``; ``x`` itself, with no operation, for 1."""
     return x if multiplier == 1.0 else x * multiplier
-
-
-def residual(x, y, multiplier: float = 1.0):
-    """The residual add of a branch ``y``, scaled by ``multiplier``."""
-    return x + scaled(y, multiplier)
 
 
 def logits_head(emb_or_w, x, *, transpose: bool, scaling: float = 1.0):

@@ -148,13 +148,9 @@ def partition_params(cfg: ArchConfig, params):
     chunks), ``last`` (final norm + head).  With tied embeddings the table
     appears in BOTH first and last; :func:`merge_grads` sums the two
     gradient contributions."""
-    first = {"embed": params["embed"]}
-    last = {"final_norm": params["final_norm"]}
-    if "head" in params:
-        last["head"] = params["head"]
-    elif cfg.tie_embeddings:
-        last["embed"] = params["embed"]
-    return first, params["blocks"], last
+    head = "embed" if cfg.tie_embeddings else "head"
+    last = {"final_norm": params["final_norm"], head: params[head]}
+    return {"embed": params["embed"]}, params["blocks"], last
 
 
 def merge_grads(cfg: ArchConfig, gfirst, gblocks, glast):
@@ -196,19 +192,19 @@ def stage_fns(cfg: ArchConfig, microbatches: int):
     """(first_fn, layer_fn, loss_fn) for ``repro_torch.dist.pp``'s
     scheduled executor.
 
-    * ``first_fn(first_params, xs_m)``: token embedding -> (B, S, D).
+    * ``first_fn(first_params, xs_m)``: ``layers.embed`` -> (B, S, D).
     * ``layer_fn(block_params, h) -> (h, aux/M)``: ONE decoder block via
       ``transformer.apply_block`` under the config's remat; the MoE router
       balance aux is scaled by 1/M so the summed step aux equals the
       microbatch mean of the model's.
-    * ``loss_fn(last_params, y, loss_m)``: final norm + lm head +
-      ``chunked_xent`` on the microbatch labels, scaled by 1/M.
+    * ``loss_fn(last_params, y, loss_m)``: final norm + the head of
+      ``transformer.head_weight`` + ``chunked_xent`` on the microbatch
+      labels, scaled by 1/M.
     """
-    cdt = L.dtype_of(cfg.compute_dtype)
     inv_m = 1.0 / float(microbatches)
 
     def first_fn(first_p, xs_m):
-        return L.embed(first_p["embed"], xs_m["tokens"], cdt)
+        return L.embed(first_p["embed"], xs_m["tokens"], cfg)
 
     def block_fn(block_p, h):
         b, s = h.shape[0], h.shape[1]
@@ -221,14 +217,11 @@ def stage_fns(cfg: ArchConfig, microbatches: int):
     layer_fn = transformer._remat(block_fn, cfg)
 
     def loss_fn(last_p, y, loss_m):
-        h = L.rmsnorm(y, last_p["final_norm"], cfg.norm_eps, cdt)
-        if "head" in last_p:
-            w, transpose = last_p["head"], False
-        else:
-            w, transpose = last_p["embed"], True
-        ce = L.chunked_xent(h, w, loss_m["labels"], transpose=transpose,
-                            chunk=cfg.loss_chunk,
-                            mask=loss_m.get("loss_mask"))
+        h = L.rmsnorm(y, last_p["final_norm"], cfg.norm_eps,
+                      cfg.compute_dtype)
+        w, kw = transformer.head_weight(last_p, cfg)
+        ce = L.chunked_xent(h, w, loss_m["labels"], chunk=cfg.loss_chunk,
+                            mask=loss_m.get("loss_mask"), **kw)
         return ce * inv_m
 
     return first_fn, layer_fn, loss_fn

@@ -13,6 +13,8 @@ the text.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -174,15 +176,26 @@ def _ffn(p, h, cfg: ArchConfig):
     return y, aux
 
 
+def prenorm_layer(p, x, cfg: ArchConfig, *mixers):
+    """One layer's pre-norm residual branches, in order: each mixer
+    ``(norm, fn)``, then the layer's FFN (:func:`_ffn`) under the next
+    ``norm{k}`` where ``p`` holds one.  A branch adds ``fn(rmsnorm(x,
+    p[norm]))`` to ``x``, scaled by ``cfg.residual_multiplier``.  Returns
+    (x, the FFN's aux loss: 0.0 for a dense FFN or none)."""
+    cdt, rm = cfg.compute_dtype, cfg.residual_multiplier
+    for norm, fn in mixers:
+        x = x + L.scaled(fn(L.rmsnorm(x, p[norm], cfg.norm_eps, cdt)), rm)
+    if "mlp" not in p and "moe" not in p:
+        return x, 0.0
+    h = L.rmsnorm(x, p[f"norm{len(mixers) + 1}"], cfg.norm_eps, cdt)
+    y, aux = _ffn(p, h, cfg)
+    return x + L.scaled(y, rm), aux
+
+
 def apply_block(p, x, cfg: ArchConfig, *, positions, mask=None):
     """One block over the whole sequence: (x, aux loss)."""
-    cdt, rm = cfg.compute_dtype, cfg.residual_multiplier
-    h = L.rmsnorm(x, p["norm1"], cfg.norm_eps, cdt)
-    x = L.residual(x, L.attention(p["attn"], h, cfg, positions=positions,
-                                  mask=mask), rm)
-    h = L.rmsnorm(x, p["norm2"], cfg.norm_eps, cdt)
-    y, aux = _ffn(p, h, cfg)
-    return L.residual(x, y, rm), aux
+    return prenorm_layer(p, x, cfg, ("norm1", lambda h: L.attention(
+        p["attn"], h, cfg, positions=positions, mask=mask)))
 
 
 def run_stack(params, x, cfg: ArchConfig, *, positions, mask=None):
@@ -204,8 +217,7 @@ def _embed_inputs(params, batch, cfg: ArchConfig):
     """Returns (h, positions, text_start).  For vlm, prepends the projected
     patch embeddings; text occupies positions [num_patches, num_patches+S)."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], batch["tokens"], cdt,
-                cfg.embedding_multiplier)
+    h = L.embed(params["embed"], batch["tokens"], cfg)
     b = h.shape[0]
     if cfg.num_patches:
         pr = params["projector"]
@@ -227,17 +239,24 @@ def loss_fn(params, batch, cfg: ArchConfig):
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
     if text_start:
         h = h[:, text_start:]
-    w, transpose = head_weight(params, cfg)
-    ce = L.chunked_xent(h, w, batch["labels"], transpose=transpose,
-                        chunk=cfg.loss_chunk, mask=batch.get("loss_mask"),
-                        scaling=cfg.logits_scaling)
+    w, kw = head_weight(params, cfg)
+    ce = L.chunked_xent(h, w, batch["labels"], chunk=cfg.loss_chunk,
+                        mask=batch.get("loss_mask"), **kw)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 def head_weight(params, cfg: ArchConfig):
-    if cfg.tie_embeddings:
-        return params["embed"], True
-    return params["head"], False
+    """The logits head's weight (the embedding where the config ties them)
+    and its keywords for ``layers.logits_head`` and ``chunked_xent``."""
+    tied = cfg.tie_embeddings
+    return (params["embed" if tied else "head"],
+            {"transpose": tied, "scaling": cfg.logits_scaling})
+
+
+def logits(params, h, cfg: ArchConfig):
+    """Final hidden states -> fp32 logits through :func:`head_weight`."""
+    w, kw = head_weight(params, cfg)
+    return L.logits_head(w, h, **kw)
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
@@ -265,36 +284,33 @@ def prefill(params, tokens, cfg: ArchConfig, max_len: int, patches=None):
         batch["patches"] = patches
     h, positions, _ = _embed_inputs(params, batch, cfg)
     cache = init_cache(h.shape[0], max_len, cfg, cdt, tokens.device)
+
+    def attn(p, lc, n):
+        return L.attention_prefill(p, n, cfg, positions=positions,
+                                   cache=lc)[0]
+
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache.items()}
-        n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
-        a, _ = L.attention_prefill(bp["attn"], n, cfg, positions=positions,
-                                   cache=lc)
-        h = L.residual(h, a, cfg.residual_multiplier)
-        n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = L.residual(h, _ffn(bp, n, cfg)[0], cfg.residual_multiplier)
+        h, _ = prenorm_layer(bp, h, cfg,
+                             ("norm1", partial(attn, bp["attn"], lc)))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h[:, -1:], transpose=transpose,
-                         scaling=cfg.logits_scaling), cache
+    return logits(params, h[:, -1:], cfg), cache
 
 
 def decode_step(params, cache, token, cache_len: int, cfg: ArchConfig):
     """token: (B,1) integer; cache_len: int.  Returns (logits, cache); the
     cache is updated in place."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    h = L.embed(params["embed"], token, cdt, cfg.embedding_multiplier)
+    h = L.embed(params["embed"], token, cfg)
+
+    def attn(p, lc, n):
+        return L.attention_decode(p, n, cfg, cache=lc, cache_len=cache_len)[0]
+
     for i in range(cfg.num_layers):
         bp = layer(params["blocks"], i)
         lc = {k: v[i] for k, v in cache.items()}
-        n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
-        a, _ = L.attention_decode(bp["attn"], n, cfg, cache=lc,
-                                  cache_len=cache_len)
-        h = L.residual(h, a, cfg.residual_multiplier)
-        n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = L.residual(h, _ffn(bp, n, cfg)[0], cfg.residual_multiplier)
+        h, _ = prenorm_layer(bp, h, cfg,
+                             ("norm1", partial(attn, bp["attn"], lc)))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
-    w, transpose = head_weight(params, cfg)
-    return L.logits_head(w, h, transpose=transpose,
-                         scaling=cfg.logits_scaling), cache
+    return logits(params, h, cfg), cache

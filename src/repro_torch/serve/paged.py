@@ -11,10 +11,11 @@ view index ``v`` of the gathered per-slot cache
 
     pool[layer][table_row].reshape(view_len, K, hd)
 
-is exactly logical position ``v``.  Two functions, both running the
-``repro_torch.models.transformer`` block body (same rmsnorm / attention /
-FFN: the SwiGLU MLP, or in the ``moe`` family the routed experts plus any
-shared expert):
+is exactly logical position ``v``.  Two functions, both running every
+layer through ``repro_torch.models.transformer.prenorm_layer`` (the same
+rmsnorms, residuals and FFN as the non-paged forward: the SwiGLU MLP, or
+in the ``moe`` family the routed experts plus any shared expert, and none
+where a hybrid layer has no FFN):
 
 * :func:`prefill_chunk` — one prompt chunk of one request (batch 1, padded
   to a pow2 ``bucket``), scatter-writes the chunk's K/V into the pool and
@@ -85,6 +86,8 @@ is ``moe.ffn``.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -92,7 +95,7 @@ from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models.sharding import P, shards
-from repro_torch.models.transformer import _ffn, head_weight, layer
+from repro_torch.models.transformer import layer, logits, prenorm_layer
 from repro_torch.obs.record import prange
 from repro_torch.serve.policy import ServeConfig
 from repro_torch.tree import tree_map
@@ -175,28 +178,23 @@ def _paged_attention(attn_p, h, cfg, pool_k, pool_v, *, positions, write_bi,
 
 def _stack_forward(params, pool, tokens, cfg, *, mamba=None, **attn):
     """Embedding, every layer and the final norm.  ``attn``: the keywords
-    of :func:`_paged_attention` past the pool layers; ``mamba(i, p, h)``:
+    of :func:`_paged_attention` past the pool layers; ``mamba(p, i, h)``:
     the hybrid family's Mamba mixer of the i-th Mamba layer."""
-    cdt = L.dtype_of(cfg.compute_dtype)
-    rm = cfg.residual_multiplier
-    h = L.embed(params["embed"], tokens, cdt, cfg.embedding_multiplier)
+    h = L.embed(params["embed"], tokens, cfg)
     if cfg.family == "hybrid":
         layers = HY.stack_layers(params, cfg)
     else:
         layers = (("attn", i, layer(params["blocks"], i))
                   for i in range(cfg.num_layers))
+
+    def attention(p, i, n):
+        return _paged_attention(p, n, cfg, pool["k"][i], pool["v"][i], **attn)
+
+    mixers = {"attn": attention, "mamba": mamba}
     for mixer, i, bp in layers:
-        n = L.rmsnorm(h, bp["norm1"], cfg.norm_eps, cdt)
-        if mixer == "attn":
-            y = _paged_attention(bp["attn"], n, cfg, pool["k"][i],
-                                 pool["v"][i], **attn)
-        else:
-            with prange("mamba.mixer"):
-                y = mamba(i, bp["mamba"], n)
-        h = L.residual(h, y, rm)
-        n = L.rmsnorm(h, bp["norm2"], cfg.norm_eps, cdt)
-        h = L.residual(h, _ffn(bp, n, cfg)[0], rm)
-    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cdt)
+        h, _ = prenorm_layer(bp, h, cfg,
+                             ("norm1", partial(mixers[mixer], bp[mixer], i)))
+    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps, cfg.compute_dtype)
 
 
 def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
@@ -225,14 +223,15 @@ def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
     rows = torch.full((1,), start, dtype=torch.int32, device=dev)
     lane = scfg.slots if slot is None else slot
 
-    def mamba(i, p, n):
-        st = {k: v[i, lane:lane + 1] for k, v in pool["ssm"].items()}
-        y, new = MB.mamba_forward(
-            p, n, cfg, init_state=st["state"], length=width,
-            conv_tails={k: v for k, v in st.items() if k != "state"})
-        for k, v in new.items():
-            st[k].copy_(v)
-        return y
+    def mamba(p, i, n):
+        with prange("mamba.mixer"):
+            st = {k: v[i, lane:lane + 1] for k, v in pool["ssm"].items()}
+            y, new = MB.mamba_forward(
+                p, n, cfg, init_state=st["state"], length=width,
+                conv_tails={k: v for k, v in st.items() if k != "state"})
+            for k, v in new.items():
+                st[k].copy_(v)
+            return y
 
     h = _stack_forward(
         params, pool, tokens, cfg, mamba=mamba, positions=pos[None, :],
@@ -242,10 +241,7 @@ def prefill_chunk(params, pool, tokens, start: int, width: int, table_row,
     )
     last = h[:, width - 1:width]
     with prange("paged.head"):
-        w, transpose = head_weight(params, cfg)
-        logits = L.logits_head(w, last, transpose=transpose,
-                               scaling=cfg.logits_scaling)
-    return logits, pool
+        return logits(params, last, cfg), pool
 
 
 def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
@@ -270,13 +266,13 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
     q_offset = lengths.to(torch.int32)
     active = lengths64 > 0 if "ssm" in pool else None
 
-    def mamba(i, p, n):
+    def mamba(p, i, n):
         # the pool's lanes step in place: the state by the kernel itself,
         # no temporary of its size and no copy back
-        st = {k: v[i, :s] for k, v in pool["ssm"].items()}
-        y, _ = MB.mamba_step(p, n, cfg, st, active=active,
-                             state_out=st["state"])
-        return y
+        with prange("mamba.mixer"):
+            st = {k: v[i, :s] for k, v in pool["ssm"].items()}
+            return MB.mamba_step(p, n, cfg, st, active=active,
+                                 state_out=st["state"])[0]
 
     h = _stack_forward(
         params, pool, tokens, cfg, mamba=mamba, positions=lengths64[:, None],
@@ -285,10 +281,7 @@ def decode_batch(params, pool, tokens, lengths, tables, cfg: ArchConfig,
         kv_len=torch.full_like(q_offset, scfg.view_len),
     )
     with prange("paged.head"):
-        w, transpose = head_weight(params, cfg)
-        logits = L.logits_head(w, h, transpose=transpose,
-                               scaling=cfg.logits_scaling)
-    return logits, pool
+        return logits(params, h, cfg), pool
 
 
 # -- slot sharding ---------------------------------------------------------------

@@ -10,7 +10,8 @@ two prompts prefill in several chunks while the other slots decode, and
 every logit the engine computes is compared with the reference's at its
 position.  Also: lanes that are not decoding keep their state through a
 decode call; the bucket's right-padding leaves the state alone; the new
-config fields' defaults add no operation to a qwen3 or a jamba forward;
+config fields' defaults add no operation to a qwen3, a jamba, a mamba2 or
+a seamless forward, or to the pipelined step; jamba through the paged functions, also with no dense FFN;
 the slot-sharded engine and the priced serve twin refuse the family; the
 ``mamba.mixer`` ranges, the SSD op calls and the engine's state resets.
 """
@@ -249,15 +250,22 @@ def _aten_ops(fn) -> list[str]:
 
 
 def _forward(cfg):
-    """A qwen3 (dense stack, paged) or jamba (hybrid superblocks) prefill
-    and decode at smoke size; returns (aten ops, logits)."""
+    """A qwen3 (dense stack, paged), jamba (hybrid superblocks), mamba2
+    (SSM layers) or seamless (encoder-decoder) prefill and decode at smoke
+    size; returns (aten ops, logits)."""
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.tensor([[3, 1, 4, 1, 5, 9, 2, 6]])
     out = []
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm", "audio"):
+        kw = {}
+        if cfg.family == "audio":
+            kw["frames"] = torch.randn(
+                1, cfg.source_len, cfg.frontend_dim,
+                generator=torch.Generator().manual_seed(1))
+
         def fn():
-            lg, cache = model.prefill(params, toks, max_len=16)
+            lg, cache = model.prefill(params, toks, max_len=16, **kw)
             out.append(lg)
             out.append(model.decode(params, cache, toks[:, :1], 8)[0])
     else:
@@ -282,7 +290,8 @@ def _forward(cfg):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "mamba2-2.7b",
+                                  "seamless-m4t-large-v2"])
 def test_new_field_defaults_add_no_operation(arch):
     """At the defaults the forward runs exactly the operations of the same
     forward with the scalings on, less the scalings' own products; and the
@@ -292,15 +301,53 @@ def test_new_field_defaults_add_no_operation(arch):
     on = dataclasses.replace(cfg, embedding_multiplier=2.0,
                              residual_multiplier=0.5, logits_scaling=4.0)
     ops_on, _ = _forward(on)
-    # per forward: the embedding, two residual branches a layer, the logits
+    # per forward: the embedding, the residual branches of every layer (a
+    # mixer and an FFN; the mixer alone in the ssm family; self and cross
+    # attention and an FFN in an encoder-decoder's decoder), the logits;
+    # the prefill also runs the encoder's two branches a layer
+    branches = {"ssm": 1, "audio": 3}.get(cfg.family, 2)
     extra = Counter(ops_on) - Counter(ops)
-    assert extra == Counter({"aten.mul": 2 * (1 + 2 * cfg.num_layers),
-                             "aten.div": 2})
+    assert extra == Counter({
+        "aten.mul": 2 * (1 + branches * cfg.num_layers)
+        + 2 * cfg.encoder_layers, "aten.div": 2})
     assert not Counter(ops) - Counter(ops_on)
     scale = dataclasses.replace(
         cfg, attention_multiplier=1.0 / cfg.resolved_head_dim ** 0.5)
     _, same = _forward(scale)
     assert all(torch.equal(a, b) for a, b in zip(logits, same))
+
+
+def test_new_field_defaults_add_no_operation_to_the_pipelined_step():
+    """The pipelined step (pp 2, two microbatches, 1F1B) embeds, adds its
+    residual branches and reads its head through the same functions: with
+    the scalings on it runs the same operations plus their products, a
+    ``mul`` for the embedding and each block's two branches, forward and
+    backward, in every microbatch, and the logits' ``div``s."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.models import pipeline
+    from repro_torch.models.build import make_concrete_batch
+
+    cfg = dataclasses.replace(
+        smoke_variant(get_config("llama3.2-1b")), num_layers=4, d_model=64,
+        num_heads=2, num_kv_heads=2, head_dim=32, d_ff=128, vocab_size=256,
+        remat_policy="none")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    batch = make_concrete_batch(cfg, ShapeConfig("ops", 16, 4, "train"),
+                                device="cpu")
+    mesh = make_mesh((2,), ("stage",), device="cpu")
+
+    def step_ops(c):
+        plan = pipeline.make_plan(c, 2, 2, schedule="1f1b")
+        return Counter(_aten_ops(lambda: pipeline.pipeline_loss_and_grads(
+            plan, params, batch, mesh)))
+
+    ops = step_ops(cfg)
+    extra = step_ops(dataclasses.replace(
+        cfg, embedding_multiplier=2.0, residual_multiplier=0.5,
+        logits_scaling=4.0)) - ops
+    assert set(extra) == {"aten.mul", "aten.div"}
+    assert extra["aten.mul"] == 2 * 2 * (1 + 2 * cfg.num_layers)
 
 
 def test_slot_sharded_engine_refuses_the_hybrid(model_and_weights):
@@ -388,11 +435,22 @@ def test_jamba_paged_matches_its_non_paged_forward():
     chunks then a decode step, against ``models.hybrid``'s whole-prompt
     prefill and its decode step, in float32; capacity E/k, so no dispatch
     group drops a choice whatever tokens it holds."""
+    _jamba_paged_against_non_paged()
+
+
+def test_jamba_without_dense_ffn_paged_matches_its_non_paged_forward():
+    """The same with ``d_ff`` 0: the layers without an MoE have no FFN at
+    all, in the paged forward as in the non-paged one."""
+    _jamba_paged_against_non_paged(d_ff=0)
+
+
+def _jamba_paged_against_non_paged(**changes):
     from repro_torch.models.build import compute_params
 
     cfg = smoke_variant(get_config("jamba-1.5-large-398b"))
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k),
+        **changes)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(3))
     cp = compute_params(params, cfg)
