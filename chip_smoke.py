@@ -22,11 +22,13 @@
                                            # run's cells and its check
     python3 chip_smoke.py --only bench     # kernels' checks, then the
                                            # port's bench gate's rows
+    python3 chip_smoke.py --only moe       # kernels' checks, then the
+                                           # dropless MoE experts' rows
 
 Phases, each printing one line of numbers:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build   — the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+2. build   — the five kernel packages from ``src/repro_torch/kernels/*/csrc``
              with nvcc for sm_90a, in parallel, and each kernel function's
              registers, spills and static shared memory (``-Xptxas -v``);
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -106,14 +108,17 @@ Phases, each printing one line of numbers:
              the median of 5 steps timed one by one, with their minimum,
              maximum and the card's busy time of one more step;
 13. moe-serve — qwen3-moe-235b-a22b at its published widths (d_model 4096,
-             64/4 heads of 128, 128 experts top-8 of 1536, capacity 1.25,
-             groups of 512, vocab 151,936; 4 of its 94 layers, random
-             weights) through phase 4's serve path (calibrate, engine,
-             twins; launches asserted), a profiled decode step, and two of
+             64/4 heads of 128, 128 experts top-8 of 1536, groups of 512,
+             vocab 151,936; 4 of its 94 layers, random weights) at the serve
+             cells' capacity factor E / k (16: no dispatch group overflows,
+             so the MoE takes its dropless path) through phase 4's serve
+             path (calibrate, engine, twins; launches asserted, 16
+             ``moe_experts`` a call), a profiled decode step, and two of
              the trace's requests prefilled chunk by chunk and decoded
-             together against the sequential ``Model.prefill``/``decode``
-             at a capacity no dispatch group can overflow (``moe-serve-
-             check``);
+             together, on the dropless and on the einsum path, against the
+             sequential ``Model.prefill``/``decode`` on the einsum path
+             (``moe-serve-check``: logits held where both sides chose the
+             same top-k sets, the flips counted and bounded);
 14. jamba   — one whole period of jamba-1.5-large-398b (1 attention : 7
              mamba, MoE 16 experts top-2 on every other layer, 64/8 heads of
              128, d_state 128, vocab 65,536) with d_model cut to 1024 and
@@ -314,7 +319,14 @@ bf16 launch plans, and runs ``torch.library.opcheck`` on both ops on the
 card.  The row ``mamba_step@granite-decode`` holds the Mamba-2 decode
 step against its plain version at the granite serve cell's decode call
 (128 lanes x 128 heads, d_state 128, head_dim 64) and times it with every
-lane and with half of them stepping.  The kernel rows of every path hold
+lane and with half of them stepping.  The rows ``moe_experts@*``
+(``[moe-experts]``, also behind ``--only moe``) hold the dropless MoE path's
+routing table exactly and its gate/up, down and combine kernels against
+their plain versions at the serve cells' calls (``MOE_EXPERTS``: granite's
+and qwen3's decode and 256-token chunk, and a skewed chunk), the dropless
+``moe_ffn`` against the einsum path on the same weights, one call under
+``set_sync_debug_mode("error")``, and time the four kernels against the
+weight-byte bound with the einsum path's time beside.  The kernel rows of every path hold
 their kernel against its plain version again; the flash rows of the train paths also time the backward
 kernels beside their bound and the plain VJP.
 
@@ -507,11 +519,36 @@ BWD_CASES = [
      None),
 ]
 # [moe-serve]: qwen3-moe-235b-a22b at its published widths, 4 of its 94
-# layers (every layer is MoE, so one whole period), through the llama serve
-# phase's engine, trace and twin; then two of the trace's requests prefilled
-# chunk by chunk and decoded together against the sequential decode, at a
-# capacity no dispatch group can overflow (bf16: the serve check's limit)
-MOE_SERVE = dict(arch="qwen3-moe-235b-a22b", layers=4, decode=8)
+# layers (every layer is MoE, so one whole period), at the serve cells'
+# capacity factor E / k, through the llama serve phase's engine, trace and
+# twin; then two of the trace's requests prefilled chunk by chunk and decoded
+# together against the sequential decode (bf16: the serve check's limit
+# where both sides routed alike), and at most max_flip_share of the top-k
+# sets of their positions and MoE layers chosen otherwise.  With random
+# weights the router's top-8 of 128 is nearly flat, so near-ties are common:
+# on the H100 over eight weight and trace seeds the sets differed at 0-1.8 %
+# of the decisions on the einsum path and 0.04-2.7 % on the dropless one;
+# 5 % is above both, while a routing defect moves most sets
+MOE_SERVE = dict(arch="qwen3-moe-235b-a22b", layers=4, decode=8,
+                 max_flip_share=0.05)
+# [moe-experts]: the dropless MoE path (kernels/moe_experts) at the serve
+# cells' calls: tokens, top-k, experts, d_model, d_ff_expert; "skewed" routes
+# every token to the same k experts (one expert takes every row, the rest
+# none).  Each kernel against its plain version on the same rows, the whole
+# path against the einsum path on the same routing (bf16, BF16_TOL of the
+# output's scale), times against cost()'s bound and the einsum path's
+MOE_EXPERTS = {
+    "granite-decode": dict(tokens=128, top_k=10, experts=72, d_model=4096,
+                           d_ff=768),
+    "granite-chunk": dict(tokens=256, top_k=10, experts=72, d_model=4096,
+                          d_ff=768),
+    "granite-chunk-skewed": dict(tokens=256, top_k=10, experts=72,
+                                 d_model=4096, d_ff=768, skewed=True),
+    "qwen3-decode": dict(tokens=64, top_k=8, experts=128, d_model=4096,
+                         d_ff=1536),
+    "qwen3-chunk": dict(tokens=256, top_k=8, experts=128, d_model=4096,
+                        d_ff=1536),
+}
 # [jamba]: one whole period of jamba-1.5-large-398b (1 attention : 7 mamba,
 # MoE on every other layer, 64/8 heads of 128, 16 experts top-2, mamba head
 # 64, d_state 128, chunk 256, vocab 65,536, adafactor, full remat), d_model
@@ -1050,6 +1087,7 @@ def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
     from repro_torch.core.estimator import OpTimeEstimator
     from repro_torch.core.hardware import platform_for_device
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_experts import ops as mx_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.models import build_model
     from repro_torch.netprof.pricing import graph_provenance
@@ -1095,18 +1133,21 @@ def serve(dev, failures: list, cfg, tag: str = "serve") -> dict:
     # the main path: counts from zero, read right after
     rms_ops.LAUNCHES.reset()
     fa_ops.LAUNCHES.reset()
+    mx_ops.LAUNCHES.reset()
     t0 = time.perf_counter()
     finished = engine.run_until_done()
     t_run = time.perf_counter() - t0
     launches = {"rmsnorm": rms_ops.LAUNCHES.count,
-                "flash_attention": fa_ops.LAUNCHES.count}
+                "flash_attention": fa_ops.LAUNCHES.count,
+                "moe_experts": mx_ops.LAUNCHES.count}
     n_prefill = sum(1 for s in engine.step_log if s[2] is not None)
     n_decode = sum(1 for s in engine.step_log if s[3])
     forwards = n_prefill + n_decode
     per_fwd = {"rmsnorm": 2 * cfg.num_layers + 1,
-               "flash_attention": cfg.num_layers}
+               "flash_attention": cfg.num_layers,
+               "moe_experts": moe_launches_per_forward(cfg)}
     for name, per in per_fwd.items():
-        if launches[name] != per * forwards or launches[name] == 0:
+        if launches[name] != per * forwards or (per and launches[name] == 0):
             failures.append(f"{name}: {launches[name]} launches on the serve "
                             f"run, expected {per} x {forwards} forward calls")
 
@@ -1241,15 +1282,30 @@ def roomy(cfg):
         m, capacity_factor=m.num_experts / m.top_k))
 
 
-def moe_serve_check(dev, ctx: dict, failures: list) -> None:
+def moe_serve_check(dev, ctx: dict, failures: list) -> dict:
     """Two of the trace's requests (the first of several chunks and the one
     after it) through the paged path, prefilled chunk by chunk into a fresh
     pool and then decoded together, against each request's sequential
     ``Model.prefill`` / ``decode`` fed the same tokens (its greedy ones),
     at a capacity no group can overflow: a chunk, a decode batch and a
-    whole prompt route different groups (ROADMAP C1).  Every step's logits
-    within the serve check's limit (bf16 tolerance x the logits' scale)."""
+    whole prompt route different groups (ROADMAP C1).
+
+    The sequential side runs with autograd on, so its MoE takes the einsum
+    path (no parameter needs a gradient, so no graph is kept); the paged
+    side runs twice, under ``inference_mode`` (the dropless path, as the
+    engine serves) and with autograd on (the einsum path).  Every MoE
+    layer's top-k set at every real position is recorded on each side.  A
+    reading (the last prompt position's logits, or a decode step's) whose
+    position chose the same sets in every layer on both sides is held to
+    the serve check's limit (bf16 tolerance x the logits' scale).  Where a
+    layer chose another set (a flip: two router probabilities so close that
+    the sides' roundings order them apart), the reading is reported and not
+    held; the flips, over every real position and MoE layer, must stay
+    within ``MOE_SERVE["max_flip_share"]`` of those decisions."""
+    from unittest import mock
+
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import paged
     from repro_torch.serve.trace import prompt_tokens
 
@@ -1258,55 +1314,134 @@ def moe_serve_check(dev, ctx: dict, failures: list) -> None:
     trace = ctx["trace"]
     first = next(i for i, t in enumerate(trace) if t.prompt_len > scfg.chunk)
     reqs = trace[first:first + 2]
+    prompts = [prompt_tokens(t, cfg.vocab_size) for t in reqs]
     n_dec = MOE_SERVE["decode"]
     mb = scfg.max_blocks_per_slot
     tables = (torch.arange(2 * mb, dtype=torch.int32, device=dev).view(2, mb)
               + 1)
-    pool = paged.init_pool(cfg, scfg, dev)
-    errs, scales, want, toks = [], [], [], []
+    route, sets = moe_mod.route, []
 
-    def compare(got, ref):
-        errs.append(max_err(got, ref))
-        scales.append(float(ref.abs().max()))
-        if not (torch.isfinite(got).all() and got.shape == ref.shape):
-            failures.append(f"moe-serve check: logits {tuple(got.shape)} "
-                            f"not finite or not {tuple(ref.shape)}")
+    def recording(p, xg, moe):
+        out = route(p, xg, moe)
+        sets.append(out[2].reshape(-1, moe.top_k).sort(-1).values)
+        return out
 
-    with torch.inference_mode():
-        for slot, req in enumerate(reqs):
-            prompt = prompt_tokens(req, cfg.vocab_size)
-            # the sequential decode: greedy tokens and each step's logits
-            logits, cache = model.prefill(
-                params, torch.as_tensor(prompt[None], device=dev),
+    def routed(fn, *args):
+        """fn(*args) and the top-k sets its MoE layers chose, (tokens, k)
+        a layer call, in call order."""
+        sets.clear()
+        out = fn(*args)
+        return out, list(sets)
+
+    # the sequential decode (einsum path): greedy tokens, each step's
+    # logits, and the sets of positions 0 .. prompt + n_dec - 1
+    want, ref_sets = [], []
+    moe_mod.reset_ep_calls()
+    with mock.patch.object(moe_mod, "route", recording), \
+            torch.enable_grad():
+        for prompt in prompts:
+            (logits, cache), got = routed(
+                model.prefill, params,
+                torch.as_tensor(prompt[None], device=dev),
                 len(prompt) + n_dec)
-            seq = [logits]
+            seq, chosen = [logits], [torch.stack(got)]
             for i in range(n_dec):
                 tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
-                logits, cache = model.decode(params, cache, tok,
-                                             len(prompt) + i)
+                (logits, cache), got = routed(model.decode, params, cache,
+                                              tok, len(prompt) + i)
                 seq.append(logits)
+                chosen.append(torch.stack(got))
             want.append(seq)
-            compare(prefill_in_chunks(dev, params, pool, prompt,
-                                      tables[slot], cfg, scfg), seq[0])
-        lengths = torch.tensor([t.prompt_len for t in reqs], dtype=torch.int32,
+            ref_sets.append(torch.cat(chosen, 1))
+    del cache
+    if set(moe_mod.EP_CALLS) != {"einsum"}:
+        failures.append(f"moe-serve check: the sequential decode's moe_ffn "
+                        f"calls {moe_mod.EP_CALLS}, expected einsum alone")
+
+    def paged_side():
+        """Each request's readings through the paged calls and the sets of
+        its real positions, as ``want`` and ``ref_sets``."""
+        pool = paged.init_pool(cfg, scfg, dev)
+        got, chosen = [], []
+        for slot, prompt in enumerate(prompts):
+            widths = [min(scfg.chunk, len(prompt) - s)
+                      for s in range(0, len(prompt), scfg.chunk)]
+            logits, per_call = routed(prefill_in_chunks, dev, params, pool,
+                                      prompt, tables[slot], cfg, scfg)
+            layers = len(per_call) // len(widths)
+            got.append([logits])
+            chosen.append([torch.stack(per_call[c * layers:(c + 1) * layers])
+                           [:, :w] for c, w in enumerate(widths)])
+        lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
                                device=dev)
         for i in range(n_dec):
             toks = torch.cat([torch.argmax(w[i][:, -1], -1) for w in want])
-            got, pool = paged.decode_batch(
-                params, pool, toks[:, None].to(torch.int32), lengths, tables,
-                cfg, scfg)
+            (logits, pool), per_call = routed(
+                paged.decode_batch, params, pool,
+                toks[:, None].to(torch.int32), lengths, tables, cfg, scfg)
+            per_call = torch.stack(per_call)
             for slot in range(2):
-                compare(got[slot:slot + 1], want[slot][i + 1])
+                got[slot].append(logits[slot:slot + 1])
+                chosen[slot].append(per_call[:, slot:slot + 1])
             lengths = lengths + 1
+        return got, [torch.cat(c, 1) for c in chosen]
+
+    paths = {}
+    for path, mode in (("dropless", torch.inference_mode),
+                       ("einsum", torch.enable_grad)):
+        moe_mod.reset_ep_calls()
+        with mock.patch.object(moe_mod, "route", recording), mode():
+            got, srv_sets = paged_side()
+        calls = dict(moe_mod.EP_CALLS)
+        errs, scales, flipped, n_flips, decisions = [], [], [], 0, 0
+        for slot, prompt in enumerate(prompts):
+            if srv_sets[slot].shape != ref_sets[slot].shape:
+                failures.append(f"moe-serve check {path}: sets "
+                                f"{tuple(srv_sets[slot].shape)} against "
+                                f"{tuple(ref_sets[slot].shape)}")
+                continue
+            flips = (srv_sets[slot] != ref_sets[slot]).any(-1)  # (layers, n)
+            n_flips += int(flips.sum())
+            decisions += flips.numel()
+            at = flips.any(0)
+            # reading j: the prompt's last position, then each decode step's
+            for j, (g, r) in enumerate(zip(got[slot], want[slot])):
+                if not (torch.isfinite(g).all() and g.shape == r.shape):
+                    failures.append(f"moe-serve check {path}: logits "
+                                    f"{tuple(g.shape)} not finite or not "
+                                    f"{tuple(r.shape)}")
+                errs.append(max_err(g, r))
+                scales.append(float(r.abs().max()))
+                flipped.append(bool(at[len(prompt) - 1 + j]))
+        share = n_flips / max(1, decisions)
+        for j, (e, sc, f) in enumerate(zip(errs, scales, flipped)):
+            if not f and e > BF16_TOL * max(1.0, sc):
+                failures.append(f"moe-serve check {path} {j}: logits differ "
+                                f"from the sequential decode by {e:.3g} "
+                                f"(scale {sc:.3g}) where both routed alike")
+        if share > MOE_SERVE["max_flip_share"]:
+            failures.append(f"moe-serve check {path}: {n_flips} of "
+                            f"{decisions} top-k sets differ from the "
+                            f"sequential decode's ({share:.3g}, limit "
+                            f"{MOE_SERVE['max_flip_share']})")
+        want_calls = {path: moe_layers(cfg) * (n_dec + sum(
+            -(-len(p) // scfg.chunk) for p in prompts))}
+        if calls != want_calls:
+            failures.append(f"moe-serve check {path}: moe_ffn calls {calls}, "
+                            f"expected {want_calls}")
+        paths[path] = {"max_abs_err": errs, "logit_scale": scales,
+                       "flipped": flipped, "flips": n_flips,
+                       "decisions": decisions, "flip_share": share,
+                       "max_abs_err_routed_alike": max(
+                           (e for e, f in zip(errs, flipped) if not f),
+                           default=None),
+                       "moe_ffn_calls": calls}
     torch.cuda.synchronize()
-    for j, (e, sc) in enumerate(zip(errs, scales)):
-        if e > BF16_TOL * max(1.0, sc):
-            failures.append(f"moe-serve check {j}: logits differ from the "
-                            f"sequential decode by {e:.3g} (scale {sc:.3g})")
     phase("moe-serve-check", arch=ctx["cfg"].name,
           rids=[t.rid for t in reqs], prompt_lens=[t.prompt_len for t in reqs],
           decode=n_dec, capacity_factor=cfg.moe.capacity_factor,
-          max_abs_err=errs, logit_scale=scales, tol=BF16_TOL)
+          tol=BF16_TOL, max_flip_share=MOE_SERVE["max_flip_share"], **paths)
+    return paths
 
 
 def mid_run_lengths(ctx: dict) -> list:
@@ -1879,7 +2014,8 @@ def train_launches(cfg, grad_accum: int) -> dict:
     encoder-decoder).  The gradients of the SSD scan and RMSNorm are the
     plain versions' VJPs and launch no kernel; flash attention's launches
     the backward kernels once an attention call in bf16 compute
-    (``flash_attention_bwd``) and is the plain VJP in fp32."""
+    (``flash_attention_bwd``) and is the plain VJP in fp32.  Training takes
+    the MoE's einsum path: no ``moe_experts`` launch."""
     from repro_torch.models.hybrid import _n_superblocks, _sublayer_kinds
 
     passes = 1 if cfg.remat_policy == "none" else 2
@@ -1902,7 +2038,7 @@ def train_launches(cfg, grad_accum: int) -> dict:
     return {"ssd_scan": passes * ssd * grad_accum,
             "flash_attention": passes * attn * grad_accum,
             "rmsnorm": (passes * norms + finals) * grad_accum,
-            "flash_attention_bwd": bwd * grad_accum}
+            "flash_attention_bwd": bwd * grad_accum, "moe_experts": 0}
 
 
 def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
@@ -1921,11 +2057,32 @@ def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
 
 def kernel_counters() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_experts import ops as mx_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     return {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
-            "flash_attention": fa_ops.LAUNCHES}
+            "flash_attention": fa_ops.LAUNCHES,
+            "moe_experts": mx_ops.LAUNCHES}
+
+
+def moe_layers(cfg) -> int:
+    """The MoE layers of ``cfg``'s stack."""
+    m = cfg.moe
+    return 0 if m is None else sum(1 for i in range(cfg.num_layers)
+                                   if i % m.every_k == m.offset)
+
+
+def moe_launches_per_forward(cfg) -> int:
+    """``kernels/moe_experts`` launches of one forward without autograd:
+    four a MoE layer where ``moe_ffn`` takes its dropless path (bf16
+    compute at a capacity no dispatch group can overflow, ``roomy``), none
+    where it keeps the einsum path."""
+    m = cfg.moe
+    if (m is None or cfg.compute_dtype != "bfloat16"
+            or m.capacity_factor < m.num_experts / m.top_k):
+        return 0
+    return 4 * moe_layers(cfg)
 
 
 def train_counters() -> dict:
@@ -2094,7 +2251,7 @@ def ssm_phase(dev, ctx: dict, failures: list) -> None:
     # prefill and decode step a block norm a layer and the final norm
     want = {"ssd_scan": (1 + SSM["decode"]) * cfg.num_layers,
             "rmsnorm": (1 + 2 * SSM["decode"]) * (cfg.num_layers + 1),
-            "flash_attention": 0}
+            "flash_attention": 0, "moe_experts": 0}
     counters = kernel_counters()
     out = {}
     for dtype, tol in SSM["tol"].items():
@@ -2197,7 +2354,8 @@ def moe_phase(dev, failures: list) -> dict:
                            generator=gen, device=dev)
     calls = 1 + 2 * d["decode"]     # prefills and decode steps
     want = {"ssd_scan": 0, "flash_attention": calls * cfg.num_layers,
-            "rmsnorm": calls * (2 * cfg.num_layers + 1)}
+            "rmsnorm": calls * (2 * cfg.num_layers + 1),
+            "moe_experts": calls * moe_launches_per_forward(check)}
     counters = kernel_counters()
     # this path's run: counts from zero, read right after
     for c in counters.values():
@@ -2222,11 +2380,13 @@ def moe_phase(dev, failures: list) -> dict:
 
 def moe_serve_config():
     """qwen3-moe-235b-a22b at its published widths, depth cut to
-    ``MOE_SERVE["layers"]``."""
+    ``MOE_SERVE["layers"]``, at the serve cells' capacity factor E / k
+    (``roomy``: no token dropped, as the published model routes every
+    token to its 8 experts), so the engine's MoE takes the dropless path."""
     from repro_torch.configs.base import get_config
 
-    return dataclasses.replace(get_config(MOE_SERVE["arch"]),
-                               num_layers=MOE_SERVE["layers"])
+    return roomy(dataclasses.replace(get_config(MOE_SERVE["arch"]),
+                                     num_layers=MOE_SERVE["layers"]))
 
 
 def jamba_config():
@@ -2247,9 +2407,10 @@ def decode_launches(cfg, prefills: int, steps: int) -> dict:
     and every norm one RMSNorm launch, as in a forward pass without remat;
     a prefill runs an SSD scan a mamba layer, a decode step none (the O(1)
     state update); an encoder-decoder's decode step runs the decoder
-    alone."""
+    alone; each call the MoE's ``moe_launches_per_forward``."""
     one = train_launches(dataclasses.replace(cfg, remat_policy="none"), 1)
     one.pop("flash_attention_bwd")        # no backward
+    one["moe_experts"] = moe_launches_per_forward(cfg)
     step = dict(one, ssd_scan=0)
     if cfg.family == "audio":
         step.update(flash_attention=2 * cfg.num_layers,
@@ -2276,7 +2437,7 @@ def jamba_phase(dev, failures: list) -> dict:
                            (d["batch"], d["prompt"] + d["decode"]),
                            generator=gen, device=dev)
     check = roomy(dataclasses.replace(cfg, compute_dtype="float32"))
-    want = decode_launches(cfg, 1 + d["decode"], d["decode"])
+    want = decode_launches(check, 1 + d["decode"], d["decode"])
     counters = kernel_counters()
     # this path's run: counts from zero, read right after
     for c in counters.values():
@@ -2419,6 +2580,158 @@ def mamba_step_row(dev, gen, chip, failures: list, ptxas: dict) -> dict:
         "spill_stores": reg.get("spill_stores")}
 
 
+def moe_experts_rows(dev, gen, chip, failures: list, ptxas: dict,
+                     serve=None) -> list:
+    """The dropless MoE experts (``kernels/moe_experts``) at ``MOE_EXPERTS``'
+    calls: the routing table against ``route_ref`` exactly, the gate/up,
+    down and combine kernels against their plain versions on the same rows,
+    and ``moe_ffn``'s dropless path against its einsum path on the same
+    weights (bf16; the relative error of the output's scale); one call under
+    ``set_sync_debug_mode("error")``; the four kernels' device ms (and each
+    alone) against ``cost()``'s bound at the experts the call routes to, the
+    plain version's and, as the yardstick, the einsum path's ms; launches a
+    call.  ``serve``: the [moe-serve] run's launches and forward calls,
+    whose ``moe_experts`` launches fill the qwen3 rows' ``launches`` (no
+    phase here serves granite: its rows' stay null, as without a run)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.kernels.moe_experts import ops as mx
+    from repro_torch.kernels.moe_experts import ref as mref
+    from repro_torch.models import moe as moe_mod
+
+    bf16 = torch.bfloat16
+    rows_out = []
+    reg = {f["function"]: f for f in ptxas.get("moe_experts", [])}
+    for name, c in MOE_EXPERTS.items():
+        T, k, E, D, Fe = (c["tokens"], c["top_k"], c["experts"],
+                          c["d_model"], c["d_ff"])
+        m = MoEConfig(num_experts=E, top_k=k, d_ff_expert=Fe,
+                      capacity_factor=E / k, group_size=512)
+        p = moe_mod.init_moe(gen, D, m, bf16)
+        x = torch.randn((1, T, D), generator=gen, device=dev).to(bf16)
+        if c.get("skewed"):
+            # a shared direction in every token that the router maps onto
+            # experts 0..k-1 far above the rest
+            x[..., 0] = 8.0
+            p["router"][0].zero_()
+            p["router"][0, :k] = 4.0 + torch.arange(k, device=dev) * 0.1
+        with torch.inference_mode():
+            _, gate, idx = moe_mod.route(p, x.reshape(1, T, D), m)
+            gate, idx = gate.reshape(T, k), idx.reshape(T, k)
+            xs = x.reshape(T, D)
+            rows = mx.route(idx, E)
+            want = mref.route_ref(idx, E)
+            route_ok = all(torch.equal(rows[key], want[key]) for key in want)
+            counts = torch.bincount(idx.reshape(-1), minlength=E)
+            hit = int((counts > 0).sum())
+            h = mx.gate_up(xs, rows, p["wg"], p["wu"])
+            h_ref = mref.gate_up_ref(xs, want, p["wg"], p["wu"])
+            out = mx.down(h_ref, rows, p["wd"])
+            out_ref = mref.down_ref(h_ref, want, p["wd"])
+            y = mx.combine(out_ref, rows, gate)
+            y_ref = mref.combine_ref(out_ref, want, gate)
+            errs = {key: max_err(a, b) / max(float(b.float().abs().max()),
+                                             1e-30)
+                    for key, a, b in (("gate_up", h, h_ref),
+                                      ("down", out, out_ref),
+                                      ("combine", y, y_ref))}
+            n0 = mx.LAUNCHES.count
+            moe_mod.reset_ep_calls()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yd, aux_d = moe_mod.moe_ffn(p, x, m, "bfloat16")
+                synced = None
+            except RuntimeError as exc:
+                yd, aux_d, synced = None, None, str(exc)[:200]
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches = mx.LAUNCHES.count - n0
+            calls = dict(moe_mod.EP_CALLS)
+        with torch.enable_grad():
+            ye, aux_e = moe_mod.moe_ffn(p, x, m, "bfloat16")
+        ye, aux_e = ye.detach(), aux_e.detach()
+        scale = float(ye.float().abs().max())
+        path_err = (max_err(yd, ye) / scale if yd is not None
+                    else float("inf"))
+        bad = [f"{key} {v:.3g}" for key, v in errs.items() if v > BF16_TOL]
+        if not route_ok:
+            bad.append("routing table differs from route_ref")
+        if path_err > BF16_TOL:
+            bad.append(f"dropless vs einsum {path_err:.3g}")
+        if synced is not None:
+            bad.append(f"host synchronisation: {synced}")
+        if launches != 4 or calls != {"dropless": 1}:
+            bad.append(f"launches {launches}, calls {calls}")
+        if aux_d is not None and not torch.equal(aux_d, aux_e):
+            bad.append(f"aux {float(aux_d)} vs {float(aux_e)}")
+        if bad:
+            failures.append(f"moe_experts@{name}: " + "; ".join(bad))
+        del h, out, y, yd, ye
+        ops_, nbytes = mx.cost(xs, idx, p["wg"], p["wu"], p["wd"], hit)
+        bound = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+
+        def whole():
+            with torch.inference_mode():
+                mx.moe_experts(xs, gate, idx, p["wg"], p["wu"], p["wd"])
+
+        def einsum():
+            with torch.enable_grad():
+                moe_mod.moe_ffn(p, x, m, "bfloat16")
+
+        def dropless():
+            with torch.inference_mode():
+                moe_mod.moe_ffn(p, x, m, "bfloat16")
+
+        with torch.inference_mode():
+            parts = {
+                "route_ms": cuda_ms(lambda: mx.route(idx, E)),
+                "gate_up_ms": cuda_ms(lambda: mx.gate_up(
+                    xs, rows, p["wg"], p["wu"])),
+                "down_ms": cuda_ms(lambda: mx.down(h_ref, rows, p["wd"])),
+                "combine_ms": cuda_ms(lambda: mx.combine(out_ref, rows,
+                                                         gate)),
+            }
+        row = {
+            "name": f"moe_experts@{name}", "route": "cuda",
+            "source": "src/repro_torch/kernels/moe_experts/csrc/"
+                      "moe_experts.cu",
+            "replaces": "none: the JAX package's models/moe.py::moe_ffn is "
+                        "plain jnp (one-hot einsums over capacity slots)",
+            "launches": (serve["launches"]["moe_experts"]
+                         if serve and name.startswith("qwen3") else None),
+            "launches_per_forward": (
+                serve["launches"]["moe_experts"] / max(1, serve[
+                    "forward_calls"])
+                if serve and name.startswith("qwen3") else None),
+            "launches_per_call": launches,
+            "shape": f"{T} tokens x top-{k} of {E} experts, d_model {D}, "
+                     f"d_ff_expert {Fe}, bf16; {hit} experts with rows, the "
+                     f"largest {int(counts.max())} rows",
+            "route_exact": route_ok, "rel_err": errs,
+            "dropless_vs_einsum_rel_err": path_err,
+            "ms": cuda_ms(whole), **parts,
+            "moe_ffn_dropless_ms": cuda_ms(dropless),
+            "call_ms": call_ms(whole),
+            "plain_ms": cuda_ms(lambda: mref.moe_experts_ref(
+                xs, gate, idx, p["wg"], p["wu"], p["wd"]), iters=3),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "weight_gb": hit * 3 * D * Fe * 2 / 1e9,
+            "library_ms": cuda_ms(einsum, iters=5),
+            "library": "the einsum path (models/moe.py::moe_ffn with "
+                       "autograd on: routing, one-hot masks, capacity "
+                       "einsums), the path this one replaces in serving",
+            "registers": {f: r.get("registers") for f, r in reg.items()},
+            "spill_stores": {f: r.get("spill_stores")
+                             for f, r in reg.items()}}
+        rows_out.append(row)
+        phase("moe-experts", **{kk: v for kk, v in row.items()
+                                if kk not in ("registers", "spill_stores",
+                                              "source", "replaces",
+                                              "library")})
+        del p, x, xs, h_ref, out_ref
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def new_path_kernel_table(dev, gen, ctx: dict, failures: list) -> list:
     """The kernels at the jamba and seamless paths' shapes: the SSD scan,
     RMSNorm and flash attention of one jamba microbatch, RMSNorm and the
@@ -2475,7 +2788,9 @@ def simtrain_phase(dev, cfg, seq: int, batch: int, failures: list,
                         f"{row['sim_offline_s']} / {row['sim_refined_s']}")
     # one step without grad_accum: each kernel op is one node of the traced
     # graph and one launch of the real step, forward and remat recompute
-    want = train_launches(cfg, grad_accum=1)
+    # (the row counts the train kernels: moe_experts never trains)
+    want = {k: v for k, v in train_launches(cfg, grad_accum=1).items()
+            if k != "moe_experts"}
     if not (row["graph_kernel_nodes"] == want
             and row["kernel_launches_per_step"] == want):
         failures.append(f"simtrain {row['name']}: kernel nodes "
@@ -2614,7 +2929,8 @@ def pp_train_phase(dev, failures: list) -> dict:
 
     cfg = get_config(DENSE_ARCH)
     want = train_launches(cfg, grad_accum=PP["dp"] * PP["microbatches"])
-    want = {k: v for k, v in want.items() if k != "ssd_scan"}
+    want = {k: v for k, v in want.items()
+            if k not in ("ssd_scan", "moe_experts")}
     counters = {k: c for k, c in train_counters().items()
                 if k in want}
     steps, logs, seen = [], [], {k: 0 for k in counters}
@@ -3461,7 +3777,7 @@ def serve_shard_phase(dev, failures: list) -> dict:
                               max_new_tokens=t.max_new_tokens,
                               arrival_s=t.arrival_s))
     counters = {k: c for k, c in kernel_counters().items()
-                if k != "ssd_scan"}
+                if k not in ("ssd_scan", "moe_experts")}
     # the main path: counts from zero, read right after
     for c in counters.values():
         c.reset()
@@ -3591,7 +3907,7 @@ def serve_obs_phases(dev, ctx: dict, failures: list) -> None:
              "--db", db_file]
 
     counters = {k: c for k, c in kernel_counters().items()
-                if k != "ssd_scan"}
+                if k not in ("ssd_scan", "moe_experts")}
     # the main path: counts from zero, read right after
     for c in counters.values():
         c.reset()
@@ -4046,7 +4362,8 @@ def int8kv_phase(dev, failures: list) -> dict:
 
     forwards = 2 * (1 + d["decode"])
     want = {"ssd_scan": 0, "flash_attention": forwards * base.num_layers,
-            "rmsnorm": forwards * (2 * base.num_layers + 1)}
+            "rmsnorm": forwards * (2 * base.num_layers + 1),
+            "moe_experts": forwards * moe_launches_per_forward(base)}
     counters = kernel_counters()
     # this path's run: both caches' prefill and decode, counted from zero
     for c in counters.values():
@@ -4174,7 +4491,7 @@ def int8kv_phase(dev, failures: list) -> dict:
             / d["profiled"],
             "port_launches_per_step": per_step[name]}
         if per_step[name] != {"ssd_scan": 0, "rmsnorm": 33.0,
-                              "flash_attention": 16.0}:
+                              "flash_attention": 16.0, "moe_experts": 0}:
             failures.append(f"int8-kv-step {name}: launches a step "
                             f"{per_step[name]}")
     # the dequantising read of one layer alone, and its eager traffic: the
@@ -4783,6 +5100,7 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
     table.append(flash_train_row(dev, gen, platform.chip, "ep-train", None,
                                  None, failures, bwd=(None, None)))
     table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
+    table += moe_experts_rows(dev, gen, platform.chip, failures, ptxas)
     return table + new_path_kernel_table(dev, gen, {
         "platform": platform, "ptxas": ptxas, "jamba": None, "encdec": None,
         "encdec_decode": None}, failures)
@@ -4792,7 +5110,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
                                        "netprof", "int8kv", "roofline",
-                                       "dryrun", "bench"),
+                                       "dryrun", "bench", "moe"),
                     help="kernels: build, check and time the kernels alone "
                          "(no serve or train run, no launch counts); pp, ep, "
                          "obs, ckpt, netprof, int8kv, roofline, dryrun or "
@@ -4803,7 +5121,8 @@ def main() -> int:
                          "pp-analyze and pp-obs; ckpt and ft; netprof; "
                          "int8-kv and int8-kv-step; the two simtrain rows "
                          "and their roofline; the layer profile into a fresh "
-                         "ProfileDB; dryrun and dryrun-check; bench-gate).  "
+                         "ProfileDB; dryrun and dryrun-check; bench-gate; "
+                         "moe-experts).  "
                          "None prints the ok line")
     ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4836,7 +5155,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan",
-                             "mamba_step"])
+                             "mamba_step", "moe_experts"])
     ptxas = ptxas_summary(logs)
     phase("build", seconds=time.perf_counter() - t0,
           flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
@@ -4913,6 +5232,15 @@ def main() -> int:
         for f in failures:
             print(f"FAIL {f}", flush=True)
         return 1 if failures else 0
+    if args.only == "moe":
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        print(json.dumps({"kernels": moe_experts_rows(
+            dev, gen, platform.chip, failures, ptxas)}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
     if args.only == "bench":
         from repro_torch.core.hardware import platform_for_device
 
@@ -4985,6 +5313,7 @@ def main() -> int:
     profile_decode(dev, ctx, "moe-serve-profile")
     moe_serve_check(dev, ctx, failures)
     table += kernel_table(dev, gen, ctx, failures, "moe-serve-")
+    moe_serve_run = {k: ctx[k] for k in ("launches", "forward_calls")}
     del ctx
     torch.cuda.empty_cache()
     jamba_launches = jamba_phase(dev, failures)["launches"]
@@ -5004,6 +5333,8 @@ def main() -> int:
         "encdec": encdec_launches, "encdec_decode": encdec_decode_launches},
         failures)
     table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
+    table += moe_experts_rows(dev, gen, platform.chip, failures, ptxas,
+                              moe_serve_run)
     torch.cuda.empty_cache()
 
     # the "dots" remat, data and pipeline parallelism

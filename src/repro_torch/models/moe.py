@@ -7,7 +7,23 @@ Routing is fp32: softmax over the experts, top-k, gates renormalised over
 the k choices.  Each (token, choice) takes the next free slot of its expert,
 counted token-major and choice-minor across the group; a choice past the
 expert's capacity is dropped.  Everything is differentiable (one-hot
-dispatch, no sorts), so one path serves training and serving.
+dispatch, no sorts).
+
+Where no choice can drop, serving takes a second path, the dropless one:
+the same routing, then the routed (token, choice) rows sorted by expert and
+each expert's SwiGLU over its rows alone (``repro_torch.kernels.moe_experts``:
+hand-written kernels on the card, the plain version on the CPU), then the
+gate-weighted combine.  ``moe_ffn``
+takes it when all of these hold, and the einsum path otherwise:
+``capacity(moe, group) >= group`` (a token picks k distinct experts, so an
+expert gets at most ``group`` choices and none overflows); autograd is off
+(the serve engine's ``inference_mode``: the path has no backward); the
+rank view is the whole (:data:`~repro_torch.models.sharding.WHOLE`, not a
+dry-run rank's); the compute is bf16 or the call is on the CPU (the kernels
+take bf16 alone, so an fp32 call on the card keeps the einsum path); and
+the ep_a2a branch did not take the call.  The two paths compute the same
+function there, in the same dtypes, and share the routing and the aux
+loss.
 
 ``impl="ep_a2a"`` runs the explicit all-to-all expert parallelism
 (``repro_torch.dist.ep_a2a.moe_ffn_ep_a2a``) when a sharding context
@@ -16,8 +32,8 @@ dispatch, no sorts), so one path serves training and serving.
 (single-rank runs, the pipeline executor's stages, the compressed step) or
 on an infeasible mesh.  That is the JAX package's rule; the two paths agree
 at capacity parity.  :data:`EP_CALLS` counts the calls of each path, so a
-run can show which one its MoE layers took.  The einsum path, from routing
-to combine, is the ``torch.profiler`` range ``moe.ffn``
+run can show which one its MoE layers took.  The einsum and dropless paths,
+from routing to combine, are the ``torch.profiler`` range ``moe.ffn``
 (``obs.record.prange``).
 """
 from __future__ import annotations
@@ -28,10 +44,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels.moe_experts.ops import moe_experts
 from repro_torch.models.layers import _init_dense, dtype_of, proj
-from repro_torch.models.sharding import rank_view
+from repro_torch.models.sharding import WHOLE, rank_view
 
-# moe_ffn calls by path since the last reset: "ep_a2a" and "einsum"
+# moe_ffn calls by path since the last reset: "ep_a2a", "einsum" and
+# "dropless"
 EP_CALLS: dict[str, int] = {}
 
 
@@ -138,7 +156,6 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
     # imports this module
     from repro_torch.obs.record import prange
 
-    EP_CALLS["einsum"] = EP_CALLS.get("einsum", 0) + 1
     cdt = dtype_of(compute_dtype)
     B, S, D = x.shape
     n_tok = B * S
@@ -146,30 +163,47 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
     g = n_tok // group
     E = moe.num_experts
     C = capacity(moe, group)
+    # the kernels take bf16 alone: an fp32 call on the card keeps the
+    # einsum path (the plain version on the CPU takes both)
+    dropless = (C >= group and not torch.is_grad_enabled()
+                and rank_view() is WHOLE
+                and (cdt == torch.bfloat16 or x.device.type == "cpu"))
+    path = "dropless" if dropless else "einsum"
+    EP_CALLS[path] = EP_CALLS.get(path, 0) + 1
+    if dropless and p["wg"].shape[0] != E:
+        raise ValueError(f"moe_ffn: {p['wg'].shape[0]} experts' weights for "
+                         f"{E} experts")
 
     with prange("moe.ffn"):
         xg = x.reshape(g, group, D)
         probs, gate_vals, expert_idx = route(p, xg, moe)
-        oh_e, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
-        # a dry-run rank's experts (routing ran over all E); else all E
-        dispatch, combine = rank_view().experts(dispatch, combine,
-                                                p["wg"].shape[0])
+        if dropless:
+            # every routed (token, choice) over its expert's rows alone
+            y = moe_experts(xg.reshape(n_tok, D).to(cdt),
+                            gate_vals.reshape(n_tok, -1),
+                            expert_idx.reshape(n_tok, -1), p["wg"].to(cdt),
+                            p["wu"].to(cdt), p["wd"].to(cdt))
+        else:
+            _, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
+            # a dry-run rank's experts (routing ran over all E); else all E
+            dispatch, combine = rank_view().experts(dispatch, combine,
+                                                    p["wg"].shape[0])
 
-        # -- expert compute ---------------------------------------------------
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt),
-                                 xg.to(cdt))
-        gph = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(cdt))
-        uph = torch.einsum("egcd,edf->egcf", expert_in, p["wu"].to(cdt))
-        h = F.silu(gph) * uph
-        expert_out = torch.einsum("egcf,efd->egcd", h, p["wd"].to(cdt))
+            # -- expert compute -----------------------------------------------
+            expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt),
+                                     xg.to(cdt))
+            gph = torch.einsum("egcd,edf->egcf", expert_in, p["wg"].to(cdt))
+            uph = torch.einsum("egcd,edf->egcf", expert_in, p["wu"].to(cdt))
+            h = F.silu(gph) * uph
+            expert_out = torch.einsum("egcf,efd->egcd", h, p["wd"].to(cdt))
 
-        # -- combine ----------------------------------------------------------
-        y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), expert_out)
+            # -- combine ------------------------------------------------------
+            y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), expert_out)
         y = y.reshape(B, S, D)
 
     # -- load-balance auxiliary loss (Switch/GShard): the fraction of tokens
     # whose top choice is each expert times its mean router probability
     me = probs.mean(dim=(0, 1))
-    ce = oh_e[:, :, 0, :].mean(dim=(0, 1))
+    ce = F.one_hot(expert_idx[:, :, 0], E).float().mean(dim=(0, 1))
     aux = moe.router_aux_loss * E * (me * ce).sum()
     return y, aux

@@ -1173,3 +1173,124 @@ def test_qwen3_paged_decode_launches_no_mamba_step(dev):
                            torch.tensor([3, 0], dtype=torch.int32, device=dev),
                            tables, cfg, scfg)
     assert ops.LAUNCHES.count == n0
+
+
+# the dropless MoE experts at the serve cells' calls: tokens, top-k, experts,
+# d_model, d_ff_expert, whether every token routes to the same k experts
+MOE_EXPERT_SHAPES = {
+    "granite decode": (128, 10, 72, 4096, 768, False),
+    "granite chunk": (256, 10, 72, 4096, 768, False),
+    "qwen3 decode": (64, 8, 128, 4096, 1536, False),
+    "qwen3 chunk": (256, 8, 128, 4096, 1536, False),
+    "granite chunk skewed": (256, 10, 72, 4096, 768, True),
+    # a whole-prompt prefill: 16 routing chunks, two tiles an expert, four
+    # dispatch groups of 512 on the einsum path
+    "qwen3 prefill 2048": (2048, 8, 128, 4096, 1536, False),
+}
+
+
+def _moe_layer(dev, tokens, k, E, D, Fe, skewed, dtype=torch.bfloat16):
+    """A MoE layer's weights at capacity E / k and tokens (1, T, D) on the
+    card; ``skewed``: the router sends every token to experts 0..k-1."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = MoEConfig(num_experts=E, top_k=k, d_ff_expert=Fe,
+                  capacity_factor=E / k, group_size=512)
+    p = moe.init_moe(gen, D, m, dtype)
+    x = torch.randn((1, tokens, D), generator=gen, device=dev).to(dtype)
+    if skewed:
+        x[..., 0] = 8.0
+        p["router"][0].zero_()
+        p["router"][0, :k] = 4.0
+    return m, p, x
+
+
+@pytest.mark.parametrize("case", list(MOE_EXPERT_SHAPES))
+def test_moe_experts_kernels_match_plain_versions(dev, case):
+    """Each kernel of the dropless path against its plain version on the
+    same rows (the routing table exactly), launches counted, and the whole
+    dropless ``moe_ffn`` against the einsum path on the same weights."""
+    from repro_torch.kernels.moe_experts import ops as mx
+    from repro_torch.kernels.moe_experts import ref
+    from repro_torch.models import moe
+
+    T, k, E, D, Fe, skewed = MOE_EXPERT_SHAPES[case]
+    m, p, x = _moe_layer(dev, T, k, E, D, Fe, skewed)
+    tol = 2e-2
+    with torch.inference_mode():
+        _, gate, idx = moe.route(p, x, m)
+        gate, idx = gate.reshape(T, k), idx.reshape(T, k)
+        xs = x.reshape(T, D)
+        n0 = mx.LAUNCHES.count
+        rows = mx.route(idx, E)
+        want = ref.route_ref(idx, E)
+        for key in want:
+            assert torch.equal(rows[key], want[key]), key
+        if skewed:
+            counts = torch.diff(want["offsets"])
+            assert counts[:k].tolist() == [T] * k and not counts[k:].any()
+        h_ref = ref.gate_up_ref(xs, want, p["wg"], p["wu"])
+        torch.testing.assert_close(mx.gate_up(xs, rows, p["wg"], p["wu"]),
+                                   h_ref, rtol=tol, atol=tol)
+        out_ref = ref.down_ref(h_ref, want, p["wd"])
+        torch.testing.assert_close(mx.down(h_ref, rows, p["wd"]), out_ref,
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(mx.combine(out_ref, rows, gate),
+                                   ref.combine_ref(out_ref, want, gate),
+                                   rtol=tol, atol=tol)
+        assert mx.LAUNCHES.count == n0 + 4
+        moe.reset_ep_calls()
+        y, aux = moe.moe_ffn(p, x, m, "bfloat16")
+        assert moe.EP_CALLS == {"dropless": 1}
+        assert mx.LAUNCHES.count == n0 + 8
+    ye, auxe = moe.moe_ffn(p, x, m, "bfloat16")
+    assert moe.EP_CALLS == {"dropless": 1, "einsum": 1}
+    scale = float(ye.float().abs().max())
+    torch.testing.assert_close(y.float(), ye.detach().float(), rtol=0,
+                               atol=tol * scale)
+    assert torch.equal(aux, auxe.detach())
+
+
+def test_moe_fp32_card_call_keeps_the_einsum_path(dev):
+    """The kernels take bf16 alone: an fp32 ``moe_ffn`` call on the card
+    takes the einsum path and launches none of them, and the ops refuse
+    fp32 CUDA tensors."""
+    from repro_torch.kernels.moe_experts import ops as mx
+    from repro_torch.models import moe
+
+    m, p, x = _moe_layer(dev, 19, 2, 4, 128, 64, False, torch.float32)
+    with torch.inference_mode():
+        moe.reset_ep_calls()
+        n0 = mx.LAUNCHES.count
+        y, _ = moe.moe_ffn(p, x, m, "float32")
+        assert moe.EP_CALLS == {"einsum": 1}
+        assert mx.LAUNCHES.count == n0 and torch.isfinite(y).all()
+        _, gate, idx = moe.route(p, x, m)
+        with pytest.raises(TypeError, match="bfloat16"):
+            mx.moe_experts(x[0], gate.reshape(19, 2), idx.reshape(19, 2),
+                           p["wg"], p["wu"], p["wd"])
+
+
+def test_moe_dropless_path_makes_no_host_sync(dev):
+    """One ``moe_ffn`` call at granite's decode shape under
+    ``set_sync_debug_mode("error")``: a synchronising operation raises."""
+    from repro_torch.kernels.moe_experts import ops as mx
+    from repro_torch.models import moe
+
+    m, p, x = _moe_layer(dev, 128, 10, 72, 4096, 768, False)
+    with torch.inference_mode():
+        moe.moe_ffn(p, x, m, "bfloat16")       # builds and loads the kernels
+        torch.cuda.synchronize()
+        moe.reset_ep_calls()
+        n0 = mx.LAUNCHES.count
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, _ = moe.moe_ffn(p, x, m, "bfloat16")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    assert moe.EP_CALLS == {"dropless": 1}
+    assert mx.LAUNCHES.count == n0 + 4
+    assert torch.isfinite(y).all()
