@@ -24,11 +24,13 @@
                                            # port's bench gate's rows
     python3 chip_smoke.py --only moe       # kernels' checks, then the
                                            # dropless MoE experts' rows
+    python3 chip_smoke.py --only mla       # kernels' checks, then the
+                                           # paged MLA kernel's rows
 
 Phases, each printing one line of numbers:
 
 1. device  — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build   — the five kernel packages from ``src/repro_torch/kernels/*/csrc``
+2. build   — the six kernel packages from ``src/repro_torch/kernels/*/csrc``
              with nvcc for sm_90a, in parallel, and each kernel function's
              registers, spills and static shared memory (``-Xptxas -v``);
 3. kernels — each kernel against its plain PyTorch version on the card, at
@@ -326,7 +328,11 @@ their plain versions at the serve cells' calls (``MOE_EXPERTS``: granite's
 and qwen3's decode and 256-token chunk, and a skewed chunk), the dropless
 ``moe_ffn`` against the einsum path on the same weights, one call under
 ``set_sync_debug_mode("error")``, and time the four kernels against the
-weight-byte bound with the einsum path's time beside.  The kernel rows of every path hold
+weight-byte bound with the einsum path's time beside.  The rows
+``mla_attention@kimi-*`` (also behind ``--only mla``) hold the paged MLA
+kernel against its plain version at the Kimi-K2 cell's decode call and
+2,048-token chunk (``MLA_ATTN``) and time it against ``cost``'s bound at
+the tokens' own keys.  The kernel rows of every path hold
 their kernel against its plain version again; the flash rows of the train paths also time the backward
 kernels beside their bound and the plain VJP.
 
@@ -537,6 +543,13 @@ MOE_SERVE = dict(arch="qwen3-moe-235b-a22b", layers=4, decode=8,
 # none).  Each kernel against its plain version on the same rows, the whole
 # path against the einsum path on the same routing (bf16, BF16_TOL of the
 # output's scale), times against cost()'s bound and the einsum path's
+# the paged MLA kernel at the Kimi-K2 serve cell's calls (64 heads, latent
+# rows of 512 + 64, pages of 64, views of 33,792 positions): a decode call
+# of 32 lanes at mixed lengths (two idle at position 0) and a prefill chunk
+# of 2,048 tokens at positions 14,336..16,383 of one lane
+MLA_ATTN = dict(heads=64, width=576, rank=512, page=64, view=33792, lanes=32,
+                lengths_seed=3, chunk_start=14336, chunk=2048,
+                scale=192 ** -0.5 * (0.1 * math.log(32) + 1) ** 2)
 MOE_EXPERTS = {
     "granite-decode": dict(tokens=128, top_k=10, experts=72, d_model=4096,
                            d_ff=768),
@@ -2015,7 +2028,8 @@ def train_launches(cfg, grad_accum: int) -> dict:
     plain versions' VJPs and launch no kernel; flash attention's launches
     the backward kernels once an attention call in bf16 compute
     (``flash_attention_bwd``) and is the plain VJP in fp32.  Training takes
-    the MoE's einsum path: no ``moe_experts`` launch."""
+    the MoE's einsum path: no ``moe_experts`` launch; no family that trains
+    has latent attention: no ``mla_attention`` launch."""
     from repro_torch.models.hybrid import _n_superblocks, _sublayer_kinds
 
     passes = 1 if cfg.remat_policy == "none" else 2
@@ -2038,7 +2052,8 @@ def train_launches(cfg, grad_accum: int) -> dict:
     return {"ssd_scan": passes * ssd * grad_accum,
             "flash_attention": passes * attn * grad_accum,
             "rmsnorm": (passes * norms + finals) * grad_accum,
-            "flash_attention_bwd": bwd * grad_accum, "moe_experts": 0}
+            "flash_attention_bwd": bwd * grad_accum, "moe_experts": 0,
+            "mla_attention": 0}
 
 
 def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
@@ -2057,13 +2072,15 @@ def synthetic_batch(cfg, run: dict, step: int, dev, rows=None) -> dict:
 
 def kernel_counters() -> dict:
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mla_attention import ops as mla_ops
     from repro_torch.kernels.moe_experts import ops as mx_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     return {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
             "flash_attention": fa_ops.LAUNCHES,
-            "moe_experts": mx_ops.LAUNCHES}
+            "moe_experts": mx_ops.LAUNCHES,
+            "mla_attention": mla_ops.LAUNCHES}
 
 
 def moe_layers(cfg) -> int:
@@ -2251,7 +2268,7 @@ def ssm_phase(dev, ctx: dict, failures: list) -> None:
     # prefill and decode step a block norm a layer and the final norm
     want = {"ssd_scan": (1 + SSM["decode"]) * cfg.num_layers,
             "rmsnorm": (1 + 2 * SSM["decode"]) * (cfg.num_layers + 1),
-            "flash_attention": 0, "moe_experts": 0}
+            "flash_attention": 0, "moe_experts": 0, "mla_attention": 0}
     counters = kernel_counters()
     out = {}
     for dtype, tol in SSM["tol"].items():
@@ -2355,7 +2372,8 @@ def moe_phase(dev, failures: list) -> dict:
     calls = 1 + 2 * d["decode"]     # prefills and decode steps
     want = {"ssd_scan": 0, "flash_attention": calls * cfg.num_layers,
             "rmsnorm": calls * (2 * cfg.num_layers + 1),
-            "moe_experts": calls * moe_launches_per_forward(check)}
+            "moe_experts": calls * moe_launches_per_forward(check),
+            "mla_attention": 0}
     counters = kernel_counters()
     # this path's run: counts from zero, read right after
     for c in counters.values():
@@ -2580,6 +2598,79 @@ def mamba_step_row(dev, gen, chip, failures: list, ptxas: dict) -> dict:
         "spill_stores": reg.get("spill_stores")}
 
 
+def mla_attention_rows(dev, gen, chip, failures: list, ptxas: dict) -> list:
+    """The paged MLA kernel (``kernels/mla_attention``) at ``MLA_ATTN``'s
+    decode call and prefill chunk, each held against its plain version
+    (``ref.py`` on the card; bf16 tolerance of the output's scale), with
+    its device ms, its host-paced call ms, the plain version's ms and the
+    bound of ``cost`` at the tokens' own keys.  No PyTorch call computes
+    paged latent attention, so no library time; launches are the
+    benchmark's to count (one a layer, two with the combine)."""
+    import numpy as np
+
+    from repro_torch.kernels.mla_attention import ops as mla
+    from repro_torch.kernels.mla_attention.ref import mla_attention_ref
+
+    m = MLA_ATTN
+    h, w, page, view = m["heads"], m["width"], m["page"], m["view"]
+    mb = view // page
+    lanes = m["lanes"]
+    blocks = lanes * mb + 1
+    pages = torch.randn(blocks, page, w, generator=gen, device=dev).to(
+        torch.bfloat16)
+    perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
+    tables = perm[:lanes * mb].view(lanes, mb).to(torch.int32)
+    rng = np.random.default_rng(m["lengths_seed"])
+    dec = rng.integers(1, view - 1, lanes)
+    dec[[3, 17]] = 0
+    cases = {"decode": (list(range(lanes)), dec.tolist()),
+             "prefill": ([0] * m["chunk"], list(range(
+                 m["chunk_start"], m["chunk_start"] + m["chunk"])))}
+    reg = {f["function"]: f for f in ptxas.get("mla_attention", [])}
+    rows = []
+    for key, (lane_l, pos_l) in cases.items():
+        q = torch.randn(len(pos_l), h, w, generator=gen, device=dev).to(
+            torch.bfloat16)
+        lane = torch.tensor(lane_l, dtype=torch.int32, device=dev)
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        args = (q, pages, tables, lane, pos, m["rank"], m["scale"])
+        got = mla.mla_attention(*args)
+        want = mla_attention_ref(*args)
+        err_abs = max_err(got, want)
+        err = err_abs / float(want.float().abs().max())
+        if err > BF16_TOL or not bool(torch.isfinite(got).all()):
+            failures.append(f"mla_attention@kimi-{key}: {err:.3g} of the "
+                            f"output's scale (limit {BF16_TOL})")
+        del got, want
+        ops_, nbytes = mla.cost(*args, keys=[p + 1 for p in pos_l])
+        bound = bound_ms(chip, nbytes, ops_, chip.peak_flops)
+        splits = mla.launch_plan(len(pos_l), h, view, mla.sm_count(0))
+        fns = [f for f in reg if "mla_attn_kernel" in f
+               or (splits > 1 and "mla_combine_kernel" in f)]
+        rows.append({
+            "name": f"mla_attention@kimi-{key}", "route": "cuda",
+            "source": "src/repro_torch/kernels/mla_attention/csrc/"
+                      "mla_attention.cu",
+            "replaces": "none: the JAX package has no latent attention",
+            "launches": None, "launches_per_step": None,
+            "shape": (f"{len(pos_l)} tokens x {h} heads, rows of {w} (rank "
+                      f"{m['rank']}), pages of {page}, view {view}, "
+                      f"positions {min(pos_l)}..{max(pos_l)}, {splits} "
+                      f"split(s)"),
+            "max_abs_err": err_abs, "rel_err": err,
+            "ms": cuda_ms(lambda: mla.mla_attention(*args), iters=10),
+            "call_ms": call_ms(lambda: mla.mla_attention(*args)),
+            "plain_ms": cuda_ms(lambda: mla_attention_ref(*args), iters=2,
+                                warmup=1),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None,
+            "library": "none: no PyTorch call computes paged latent "
+                       "attention",
+            "registers": {f: reg[f].get("registers") for f in fns},
+            "spill_stores": {f: reg[f].get("spill_stores") for f in fns}})
+    return rows
+
+
 def moe_experts_rows(dev, gen, chip, failures: list, ptxas: dict,
                      serve=None) -> list:
     """The dropless MoE experts (``kernels/moe_experts``) at ``MOE_EXPERTS``'
@@ -2788,9 +2879,10 @@ def simtrain_phase(dev, cfg, seq: int, batch: int, failures: list,
                         f"{row['sim_offline_s']} / {row['sim_refined_s']}")
     # one step without grad_accum: each kernel op is one node of the traced
     # graph and one launch of the real step, forward and remat recompute
-    # (the row counts the train kernels: moe_experts never trains)
+    # (the row counts the train kernels: moe_experts and mla_attention
+    # never train)
     want = {k: v for k, v in train_launches(cfg, grad_accum=1).items()
-            if k != "moe_experts"}
+            if k not in ("moe_experts", "mla_attention")}
     if not (row["graph_kernel_nodes"] == want
             and row["kernel_launches_per_step"] == want):
         failures.append(f"simtrain {row['name']}: kernel nodes "
@@ -2930,7 +3022,7 @@ def pp_train_phase(dev, failures: list) -> dict:
     cfg = get_config(DENSE_ARCH)
     want = train_launches(cfg, grad_accum=PP["dp"] * PP["microbatches"])
     want = {k: v for k, v in want.items()
-            if k not in ("ssd_scan", "moe_experts")}
+            if k not in ("ssd_scan", "moe_experts", "mla_attention")}
     counters = {k: c for k, c in train_counters().items()
                 if k in want}
     steps, logs, seen = [], [], {k: 0 for k in counters}
@@ -3777,7 +3869,7 @@ def serve_shard_phase(dev, failures: list) -> dict:
                               max_new_tokens=t.max_new_tokens,
                               arrival_s=t.arrival_s))
     counters = {k: c for k, c in kernel_counters().items()
-                if k not in ("ssd_scan", "moe_experts")}
+                if k not in ("ssd_scan", "moe_experts", "mla_attention")}
     # the main path: counts from zero, read right after
     for c in counters.values():
         c.reset()
@@ -3907,7 +3999,7 @@ def serve_obs_phases(dev, ctx: dict, failures: list) -> None:
              "--db", db_file]
 
     counters = {k: c for k, c in kernel_counters().items()
-                if k not in ("ssd_scan", "moe_experts")}
+                if k not in ("ssd_scan", "moe_experts", "mla_attention")}
     # the main path: counts from zero, read right after
     for c in counters.values():
         c.reset()
@@ -4363,7 +4455,8 @@ def int8kv_phase(dev, failures: list) -> dict:
     forwards = 2 * (1 + d["decode"])
     want = {"ssd_scan": 0, "flash_attention": forwards * base.num_layers,
             "rmsnorm": forwards * (2 * base.num_layers + 1),
-            "moe_experts": forwards * moe_launches_per_forward(base)}
+            "moe_experts": forwards * moe_launches_per_forward(base),
+            "mla_attention": 0}
     counters = kernel_counters()
     # this path's run: both caches' prefill and decode, counted from zero
     for c in counters.values():
@@ -4491,7 +4584,8 @@ def int8kv_phase(dev, failures: list) -> dict:
             / d["profiled"],
             "port_launches_per_step": per_step[name]}
         if per_step[name] != {"ssd_scan": 0, "rmsnorm": 33.0,
-                              "flash_attention": 16.0, "moe_experts": 0}:
+                              "flash_attention": 16.0, "moe_experts": 0,
+                              "mla_attention": 0}:
             failures.append(f"int8-kv-step {name}: launches a step "
                             f"{per_step[name]}")
     # the dequantising read of one layer alone, and its eager traffic: the
@@ -5101,6 +5195,7 @@ def kernels_only(dev, gen, failures: list, ptxas: dict) -> list:
                                  None, failures, bwd=(None, None)))
     table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
     table += moe_experts_rows(dev, gen, platform.chip, failures, ptxas)
+    table += mla_attention_rows(dev, gen, platform.chip, failures, ptxas)
     return table + new_path_kernel_table(dev, gen, {
         "platform": platform, "ptxas": ptxas, "jamba": None, "encdec": None,
         "encdec_decode": None}, failures)
@@ -5110,7 +5205,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=("kernels", "pp", "ep", "obs", "ckpt",
                                        "netprof", "int8kv", "roofline",
-                                       "dryrun", "bench", "moe"),
+                                       "dryrun", "bench", "moe", "mla"),
                     help="kernels: build, check and time the kernels alone "
                          "(no serve or train run, no launch counts); pp, ep, "
                          "obs, ckpt, netprof, int8kv, roofline, dryrun or "
@@ -5122,7 +5217,7 @@ def main() -> int:
                          "int8-kv and int8-kv-step; the two simtrain rows "
                          "and their roofline; the layer profile into a fresh "
                          "ProfileDB; dryrun and dryrun-check; bench-gate; "
-                         "moe-experts).  "
+                         "moe-experts; mla: the paged MLA kernel's rows).  "
                          "None prints the ok line")
     ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5155,7 +5250,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = _build.build_all(["rmsnorm", "flash_attention", "ssd_scan",
-                             "mamba_step", "moe_experts"])
+                             "mamba_step", "moe_experts", "mla_attention"])
     ptxas = ptxas_summary(logs)
     phase("build", seconds=time.perf_counter() - t0,
           flags=" ".join(_build.NVCC_FLAGS), ptxas=ptxas)
@@ -5237,6 +5332,15 @@ def main() -> int:
 
         platform = platform_for_device(torch.cuda.get_device_name(dev))
         print(json.dumps({"kernels": moe_experts_rows(
+            dev, gen, platform.chip, failures, ptxas)}), flush=True)
+        for f in failures:
+            print(f"FAIL {f}", flush=True)
+        return 1 if failures else 0
+    if args.only == "mla":
+        from repro_torch.core.hardware import platform_for_device
+
+        platform = platform_for_device(torch.cuda.get_device_name(dev))
+        print(json.dumps({"kernels": mla_attention_rows(
             dev, gen, platform.chip, failures, ptxas)}), flush=True)
         for f in failures:
             print(f"FAIL {f}", flush=True)
@@ -5335,6 +5439,7 @@ def main() -> int:
     table.append(mamba_step_row(dev, gen, platform.chip, failures, ptxas))
     table += moe_experts_rows(dev, gen, platform.chip, failures, ptxas,
                               moe_serve_run)
+    table += mla_attention_rows(dev, gen, platform.chip, failures, ptxas)
     torch.cuda.empty_cache()
 
     # the "dots" remat, data and pipeline parallelism

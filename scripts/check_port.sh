@@ -172,7 +172,7 @@ cuda)
     # the shared tests/conftest.py imports JAX, which the card's tests do
     # not need
     exec python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py \
-        tests/test_torch_dryrun.py
+        tests/test_torch_mla_cuda.py tests/test_torch_dryrun.py
     ;;
 bench)
     need_device

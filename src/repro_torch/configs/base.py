@@ -45,6 +45,22 @@ class MoEConfig:
     # shard_map all-to-all expert parallelism — experts sharded over `data`,
     # expert FFN width over `model`; only routed activations move.
     impl: str = "einsum"
+    # DeepSeek-style routing; each default adds no operation: "softmax"
+    # (probabilities over the experts, top-k, renormalised) or "sigmoid"
+    # (fp32 sigmoid scores, top-k of the scores plus the selection bias
+    # ``router_bias`` where ``score_bias``, gates the chosen scores
+    # renormalised over the k (+1e-20)); the gates times ``routed_scaling``
+    scoring: str = "softmax"
+    score_bias: bool = False
+    routed_scaling: float = 1.0
+    # the first ``first_dense`` layers keep the dense SwiGLU of width d_ff
+    # (the MoE replaces it from there on)
+    first_dense: int = 0
+    # the experts this rank holds of the ``num_experts`` the router scores:
+    # [held_offset, held_offset + held_experts); 0: all of them.  Choices
+    # of other experts add nothing here (their ranks compute them)
+    held_experts: int = 0
+    held_offset: int = 0
 
 
 @dataclass(frozen=True)
@@ -137,12 +153,38 @@ class ArchConfig:
     residual_multiplier: float = 1.0
     attention_multiplier: float = 0.0
     logits_scaling: float = 1.0
+    # multi-head latent attention (DeepSeek-V2/V3, Kimi-K2), on where
+    # ``mla_kv_rank`` > 0: q from a rank-``mla_q_rank`` latent, k and v from
+    # one ``mla_kv_rank`` latent a token shared by every head, per head
+    # ``mla_nope_dim`` key dims without position and ``mla_rope_dim`` with
+    # RoPE (one k_pe for all heads), values of ``mla_v_dim``
+    mla_q_rank: int = 0
+    mla_kv_rank: int = 0
+    mla_nope_dim: int = 0
+    mla_rope_dim: int = 0
+    mla_v_dim: int = 0
+    # YaRN RoPE scaling of the latent attention's rotary dims, on where
+    # ``yarn_factor`` > 1: the frequencies past the correction range over
+    # ``yarn_original_max`` positions divided by the factor, cos and sin
+    # times mscale(factor, yarn_mscale) / mscale(factor,
+    # yarn_mscale_all_dim), the softmax scale times mscale(factor,
+    # yarn_mscale_all_dim)^2
+    yarn_factor: float = 1.0
+    yarn_original_max: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
     # citation / provenance string of the published config
     source: str = ""
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def is_mla(self) -> bool:
+        return self.mla_kv_rank > 0
 
     @property
     def is_attention_free(self) -> bool:
@@ -156,6 +198,12 @@ class ArchConfig:
         if not self.tie_embeddings:
             n += v * d                  # output head
         attn = d * (self.num_heads * hd) * 2 + d * (self.num_kv_heads * hd) * 2
+        if self.is_mla:
+            qr, kr, H = self.mla_q_rank, self.mla_kv_rank, self.num_heads
+            qk = self.mla_nope_dim + self.mla_rope_dim
+            attn = (d * qr + qr + qr * H * qk + d * (kr + self.mla_rope_dim)
+                    + kr + kr * H * (self.mla_nope_dim + self.mla_v_dim)
+                    + H * self.mla_v_dim * d)
         dense_ffn = 3 * d * self.d_ff if self.d_ff else 0
         mamba_p = 0
         if self.mamba is not None:
@@ -178,9 +226,10 @@ class ArchConfig:
             else:
                 n += mamba_p + d
             # FFN (dense or MoE) — hybrid archs attach FFN to every layer
-            if self.moe is not None and i % self.moe.every_k == self.moe.offset:
+            if (self.moe is not None and i >= self.moe.first_dense
+                    and i % self.moe.every_k == self.moe.offset):
                 e = self.moe
-                n += self.moe.num_experts * 3 * d * e.d_ff_expert
+                n += (e.held_experts or e.num_experts) * 3 * d * e.d_ff_expert
                 if e.d_ff_shared:
                     n += 3 * d * e.d_ff_shared
                 else:

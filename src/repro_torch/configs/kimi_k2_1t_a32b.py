@@ -5,6 +5,17 @@
 
 Memory policy: bf16 params + Adafactor (factored second moment) — with 1T
 parameters an AdamW fp32 state does not fit 256 x 16 GB.
+
+This is the JAX package's twin (``repro.configs``), field for field, and it
+is not the published model: where Kimi-K2-Instruct has multi-head latent
+attention (q rank 1,536, a 512-wide latent and 64 rotary dims, YaRN RoPE),
+this has GQA with 8 KV heads; where the published model's first layer is a
+dense SwiGLU of 18,432, every layer here is MoE; where it routes by sigmoid
+scores with a selection bias (``noaux_tc``) and scales the gates by 2.827,
+this routes by softmax.  The published configuration is
+``portbench/configs/kimi-k2-instruct-12l-ep16.json``, which sets the port's
+opt-in fields (``mla_*``, ``yarn_*``, ``moe.scoring``, ``moe.first_dense``,
+``moe.held_experts`` ...) on this registration.
 """
 from repro_torch.configs.base import ArchConfig, MoEConfig, register
 

@@ -50,6 +50,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.core.graph import DataflowGraph
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.mamba_step import ops as step_ops
+from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.tree import leaves, tree_map, unflatten_like
@@ -59,7 +60,8 @@ from repro_torch.tree import leaves, tree_map, unflatten_like
 KERNEL_COSTS = {"ssd_scan": ssd_ops.cost, "rmsnorm": rms_ops.cost,
                 "flash_attention": fa_ops.cost,
                 "flash_attention_bwd": fa_ops.backward_cost,
-                "mamba_step": step_ops.cost}
+                "mamba_step": step_ops.cost,
+                "mla_attention": mla_ops.cost}
 
 _VIEWS = {
     "view", "_unsafe_view", "reshape", "permute", "transpose", "t",

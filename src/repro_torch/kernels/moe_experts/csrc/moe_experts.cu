@@ -46,7 +46,9 @@
 // offsets (E + 1), tiles (max_tiles, 2), all int32.  moe_expert_gemm: A rows
 // (gathered through src_tok, or row r itself where src_tok is null) times
 // w0 (and w1: the gate/up form, silu(A w0) * (A w1)) into out (rows, N).
-// moe_combine: out (n, D), row_of, gate (T, k) fp32 -> y (T, D).  Activations
+// moe_combine: out (n, D), row_of, gate (T, k) fp32 -> y (T, D).  A choice
+// outside [0, E) (an expert another rank holds) has no row (row_of -1) and
+// adds nothing to y: routing, tiles and combine skip it.  Activations
 // and weights bf16.  Each returns cudaGetLastError() after its launch, or
 // cudaErrorInvalidValue for shapes it does not take (E > 1024, K, N or D not a
 // multiple of 8).
@@ -118,7 +120,7 @@ route_kernel(const int64_t* __restrict__ idx, int n, int k, int E, int max_tiles
       run[c] = s;
     }
     __syncthreads();
-    if (e >= 0) row_of[i] = hist[warp * E + e] + rank;
+    if (i < n) row_of[i] = e >= 0 ? hist[warp * E + e] + rank : -1;
     __syncthreads();
     for (int j = tid; j < 32 * E; j += kRouteThreads) hist[j] = 0;
     __syncthreads();
@@ -407,8 +409,9 @@ __global__ void __launch_bounds__(256) combine_kernel(const __nv_bfloat16* __res
 #pragma unroll
     for (int q = 0; q < V; ++q) acc[q] = 0.f;
     for (int j = 0; j < k; ++j) {
-      const float gj = bf16_round(gate[static_cast<size_t>(t) * k + j]);
       const int r = row_of[static_cast<size_t>(t) * k + j];
+      if (r < 0) continue;  // a choice of an expert this rank does not hold
+      const float gj = bf16_round(gate[static_cast<size_t>(t) * k + j]);
       const uint4 raw = *reinterpret_cast<const uint4*>(out + static_cast<size_t>(r) * D + c * V);
       const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll

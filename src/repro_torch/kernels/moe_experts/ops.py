@@ -58,17 +58,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def cost(x, expert_idx, wg, wu, wd, experts_hit=None) -> tuple:
+def cost(x, expert_idx, wg, wu, wd, experts_hit=None,
+         rows=None) -> tuple:
     """(operations, bytes) of one call: 2 operations a multiply-add of the
     routed rows' three products (6 D F a row); the weights of each expert
     with rows read once (``experts_hit``: how many have rows, all E where
-    None), x read once, h written and read, out written and read, y
-    written once, plus the routing's indices.  The least a call must move,
-    so the bound a kernel time is held to."""
+    None: the E experts the call holds), x read once, h written and read,
+    out written and read, y written once, plus the routing's indices.
+    ``rows``: the choices of held experts, where the rank holds part of
+    them (every choice where None).  The least a call must move, so the
+    bound a kernel time is held to."""
     T, D = x.shape
-    k = expert_idx.shape[1]
     E, _, Fe = wg.shape
-    n = T * k
+    n = expert_idx.numel() if rows is None else int(rows)
     hit = E if experts_hit is None else int(experts_hit)
     el = x.element_size()
     ops = 6.0 * n * D * Fe
@@ -114,11 +116,14 @@ def _on(device: torch.device) -> bool:
     raise ValueError(f"moe_experts: no kernel for device {device}")
 
 
-def route(expert_idx: torch.Tensor, experts: int) -> dict:
+def route(expert_idx: torch.Tensor, experts: int,
+          partial: bool = False) -> dict:
     """The routing of choices (T, k) int64 over ``experts``:
-    :func:`~repro_torch.kernels.moe_experts.ref.route_ref`'s tensors."""
+    :func:`~repro_torch.kernels.moe_experts.ref.route_ref`'s tensors
+    (``partial``: choices outside [0, experts) may come, and have no row;
+    the kernel drops them whatever ``partial`` says)."""
     if not _on(expert_idx.device):
-        return R.route_ref(expert_idx, experts)
+        return R.route_ref(expert_idx, experts, partial)
     if experts > MAX_EXPERTS:
         raise ValueError(f"moe_experts: at most {MAX_EXPERTS} experts, got "
                          f"{experts}")
@@ -195,14 +200,17 @@ def combine(out: torch.Tensor, rows: dict, gate: torch.Tensor):
     return y
 
 
-def moe_experts(x, gate, expert_idx, wg, wu, wd) -> torch.Tensor:
+def moe_experts(x, gate, expert_idx, wg, wu, wd,
+                partial: bool = False) -> torch.Tensor:
     """The routed experts of tokens x (T, D): ``expert_idx`` (T, k) int64
     distinct experts a token, ``gate`` (T, k) fp32 their weights, experts'
     SwiGLU weights wg, wu (E, D, F) and wd (E, F, D) in x's dtype.  Every
-    (token, choice) is computed; none is dropped.  Returns y (T, D) in x's
-    dtype: four launches on the card (bf16), the plain version on the CPU
+    (token, choice) of an expert in [0, E) is computed; none is dropped.
+    Where ``partial`` (the rank holds part of the experts), a choice
+    outside it (-1: an expert another rank holds) adds nothing.  Returns
+    y (T, D) in x's dtype: four launches on the card (bf16), the plain version on the CPU
     (fp32 or bf16)."""
     _check(x, gate, expert_idx, wg, wu, wd)
-    rows = route(expert_idx, wg.shape[0])
+    rows = route(expert_idx, wg.shape[0], partial)
     h = gate_up(x, rows, wg, wu)
     return combine(down(h, rows, wd), rows, gate)

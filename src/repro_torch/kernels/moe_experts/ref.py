@@ -22,12 +22,16 @@ def max_tiles(n_rows: int, experts: int) -> int:
     return -(-n_rows // ROW_TILE) + min(experts, n_rows)
 
 
-def route_ref(expert_idx: torch.Tensor, experts: int) -> dict:
+def route_ref(expert_idx: torch.Tensor, experts: int,
+              partial: bool = False) -> dict:
     """Sort the choices (T, k) by expert, stably (token-major, choice-minor):
     ``row_of`` (T k) the sorted row of each flat choice, ``src_tok`` (T k)
     the token of each row, ``offsets`` (E + 1) each expert's first row, and
     ``tiles`` (max_tiles, 2) the 64-row tiles (expert, first row), expert
-    -1 past the last.  All int32."""
+    -1 past the last.  All int32.  ``partial``: the rank holds part of the
+    experts, and a choice outside [0, E) has no row (:func:`_route_held`)."""
+    if partial:
+        return _route_held(expert_idx, experts)
     T, k = expert_idx.shape
     n = T * k
     dev = expert_idx.device
@@ -50,6 +54,28 @@ def route_ref(expert_idx: torch.Tensor, experts: int) -> dict:
     i32 = torch.int32
     return {"row_of": row_of.to(i32), "src_tok": (order // k).to(i32),
             "offsets": offsets.to(i32), "tiles": tiles.to(i32)}
+
+
+def _route_held(expert_idx: torch.Tensor, experts: int) -> dict:
+    """:func:`route_ref` where choices outside [0, E) (experts another rank
+    holds) have no row: their ``row_of`` is -1, they count in no offset
+    and no tile, and ``src_tok`` past the held rows is 0."""
+    T, k = expert_idx.shape
+    flat = expert_idx.reshape(-1)
+    held = (flat >= 0) & (flat < experts)
+    key = torch.where(held, flat, torch.full_like(flat, experts))
+    rows = route_ref(key.view(T, k), experts + 1)
+    n_held = int(held.sum())
+    offsets = rows["offsets"][:experts + 1]
+    tiles = rows["tiles"][:max_tiles(T * k, experts)].clone()
+    dropped = tiles[:, 0] == experts
+    tiles[dropped, 0] = -1
+    tiles[dropped, 1] = 0
+    src = rows["src_tok"].clone()
+    src[n_held:] = 0
+    row_of = torch.where(held, rows["row_of"], -1).to(torch.int32)
+    return {"row_of": row_of, "src_tok": src, "offsets": offsets,
+            "tiles": tiles, "partial": True}
 
 
 def gate_up_ref(x, rows: dict, wg, wu) -> torch.Tensor:
@@ -75,9 +101,17 @@ def down_ref(h, rows: dict, wd) -> torch.Tensor:
 
 def combine_ref(out, rows: dict, gate) -> torch.Tensor:
     """y (T, D) = sum_j gate[t, j] out[row(t, j)]: each gate rounded to
-    out's dtype, the k terms summed in fp32, the sum in out's dtype."""
+    out's dtype, the k terms summed in fp32, the sum in out's dtype (a
+    partial routing's choice with no row adds nothing)."""
     T, k = gate.shape
-    picked = out[rows["row_of"].long()].reshape(T, k, -1).float()
+    if rows.get("partial"):
+        # a choice with no row (an expert another rank holds) adds nothing
+        row = rows["row_of"].long()
+        picked = torch.where((row >= 0).view(T, k, 1),
+                             out[row.clamp(min=0)].reshape(T, k, -1).float(),
+                             0.0)
+    else:
+        picked = out[rows["row_of"].long()].reshape(T, k, -1).float()
     g = gate.to(out.dtype).float()
     acc = g[:, 0, None] * picked[:, 0]
     for j in range(1, k):
@@ -85,9 +119,11 @@ def combine_ref(out, rows: dict, gate) -> torch.Tensor:
     return acc.to(out.dtype)
 
 
-def moe_experts_ref(x, gate, expert_idx, wg, wu, wd) -> torch.Tensor:
+def moe_experts_ref(x, gate, expert_idx, wg, wu, wd,
+                    partial: bool = False) -> torch.Tensor:
     """y (T, D) of tokens x (T, D) routed to experts ``expert_idx`` (T, k)
-    with gates ``gate`` (T, k) fp32: route, gate/up, down, combine."""
-    rows = route_ref(expert_idx, wg.shape[0])
+    with gates ``gate`` (T, k) fp32: route, gate/up, down, combine
+    (``partial``: :func:`route_ref`'s)."""
+    rows = route_ref(expert_idx, wg.shape[0], partial)
     h = gate_up_ref(x, rows, wg, wu)
     return combine_ref(down_ref(h, rows, wd), rows, gate)

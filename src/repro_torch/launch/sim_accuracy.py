@@ -172,6 +172,7 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     from repro_torch.data import SyntheticTokens
     from repro_torch.device import resolve_device, synchronize
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.mla_attention import ops as mla_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import build_model
@@ -246,6 +247,9 @@ def run(cfg, *, seq: int, batch: int, steps: int = 12,
     counters = {"ssd_scan": ssd_ops.LAUNCHES, "rmsnorm": rms_ops.LAUNCHES,
                 "flash_attention": fa_ops.LAUNCHES,
                 "flash_attention_bwd": fa_ops.BWD_LAUNCHES}
+    if cfg.is_mla:
+        # latent attention's kernel, where the model has it
+        counters["mla_attention"] = mla_ops.LAUNCHES
     before = {k: c.count for k, c in counters.items()}
     wall, events = [], []
     for _ in range(steps):

@@ -212,16 +212,20 @@ def compute_params(params, cfg: ArchConfig) -> dict:
     """Serving copy of the parameters (dense and moe): the block matmul
     weights cast to the compute dtype once.  Norm scales stay in their
     parameter dtype (the norms read them in fp32), and so do the embedding
-    (the logits head multiplies in fp32) and the MoE router (routing is
-    fp32)."""
+    (the logits head multiplies in fp32) and the MoE router and its
+    selection bias (routing is fp32).  Leading dense layers
+    (``dense_blocks``) are cast as the stack is."""
     cdt = L.dtype_of(cfg.compute_dtype)
-    blocks = dict(params["blocks"])
-    for group in ("attn", "mlp", "shared_mlp"):
-        if group in blocks:
-            blocks[group] = tree_map(lambda t: t.to(cdt), blocks[group])
-    if "moe" in blocks:
-        blocks["moe"] = {k: v if k == "router" else v.to(cdt)
-                         for k, v in blocks["moe"].items()}
     out = dict(params)
-    out["blocks"] = blocks
+    for stack in ("blocks", "dense_blocks"):
+        if stack not in params:
+            continue
+        blocks = dict(params[stack])
+        for group in ("attn", "mlp", "shared_mlp"):
+            if group in blocks:
+                blocks[group] = tree_map(lambda t: t.to(cdt), blocks[group])
+        if "moe" in blocks:
+            blocks["moe"] = {k: v if k in ("router", "router_bias")
+                             else v.to(cdt) for k, v in blocks["moe"].items()}
+        out[stack] = blocks
     return out

@@ -25,6 +25,14 @@ the ep_a2a branch did not take the call.  The two paths compute the same
 function there, in the same dtypes, and share the routing and the aux
 loss.
 
+A rank that holds part of the experts (``moe.held_experts`` of the
+``num_experts`` the router scores, from ``held_offset``: expert parallelism
+with this rank's share alone, its exchange with the others left out) routes
+over all of them and computes the choices that land on its own: the
+dropless kernels drop the others from their tiles (:func:`held_choices`),
+the einsum path keeps their dispatch columns alone.  The result is this
+rank's part of the layer's output.
+
 ``impl="ep_a2a"`` runs the explicit all-to-all expert parallelism
 (``repro_torch.dist.ep_a2a.moe_ffn_ep_a2a``) when a sharding context
 (``models.sharding.use_sharding``) carries a mesh on which
@@ -62,12 +70,17 @@ def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
     """Router (fp32, whatever ``dtype``) and the experts' SwiGLU weights,
     stacked on a leading expert axis."""
     E, Fe = moe.num_experts, moe.d_ff_expert
-    return {
+    held = moe.held_experts or E
+    p = {
         "router": _init_dense(gen, (d_model, E), d_model, torch.float32),
-        "wg": _init_dense(gen, (E, d_model, Fe), d_model, dtype),
-        "wu": _init_dense(gen, (E, d_model, Fe), d_model, dtype),
-        "wd": _init_dense(gen, (E, Fe, d_model), Fe, dtype),
+        "wg": _init_dense(gen, (held, d_model, Fe), d_model, dtype),
+        "wu": _init_dense(gen, (held, d_model, Fe), d_model, dtype),
+        "wd": _init_dense(gen, (held, Fe, d_model), Fe, dtype),
     }
+    if moe.score_bias:
+        p["router_bias"] = torch.zeros((E,), dtype=torch.float32,
+                                       device=gen.device)
+    return p
 
 
 def moe_axes(moe: MoEConfig) -> dict:
@@ -75,14 +88,15 @@ def moe_axes(moe: MoEConfig) -> dict:
     their own logical axes, so rule overrides can re-shard them without
     touching the global "embed"/"ffn" activations; ``impl="ep_a2a"`` lays
     the experts over ``data`` and their FFN width over ``model``."""
+    bias = {"router_bias": ("experts",)} if moe.score_bias else {}
     if moe.impl == "ep_a2a":
-        return {
+        return bias | {
             "router": ("embed", None),
             "wg": ("experts_ep", "expert_embed", "expert_ffn_ep"),
             "wu": ("experts_ep", "expert_embed", "expert_ffn_ep"),
             "wd": ("experts_ep", "expert_ffn_ep", "expert_embed"),
         }
-    return {
+    return bias | {
         "router": ("embed", "experts"),
         "wg": ("experts", "expert_embed", "expert_ffn"),
         "wu": ("experts", "expert_embed", "expert_ffn"),
@@ -106,14 +120,38 @@ def group_size(moe: MoEConfig, n_tok: int) -> int:
 
 def route(p, xg: torch.Tensor, moe: MoEConfig):
     """fp32 routing of grouped tokens xg (g, group, D): the router's
-    probabilities (g, group, E), the renormalised gates and the chosen
-    experts (g, group, k), each token's top choice first."""
+    probabilities (g, group, E; the sigmoid scores where ``moe.scoring`` is
+    "sigmoid"), the renormalised gates and the chosen experts (g, group,
+    k), each token's top choice first.  Sigmoid scoring chooses by the
+    scores plus ``router_bias`` where ``moe.score_bias`` and gates by the
+    scores alone, normalised over the k (+1e-20), as DeepSeek-V3's
+    ``noaux_tc``; the gates times ``moe.routed_scaling``."""
     logits = proj(xg.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, moe.top_k, dim=-1)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    if moe.scoring == "sigmoid":
+        probs = torch.sigmoid(logits)
+        pick = probs + p["router_bias"] if moe.score_bias else probs
+        expert_idx = torch.topk(pick, moe.top_k, dim=-1).indices
+        gate_vals = probs.gather(-1, expert_idx)
+        gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-20)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, expert_idx = torch.topk(probs, moe.top_k, dim=-1)
+        gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                            min=1e-9)
+    if moe.routed_scaling != 1.0:
+        gate_vals = gate_vals * moe.routed_scaling
     return probs, gate_vals, expert_idx
+
+
+def held_choices(expert_idx: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """Each choice's index among the experts this rank holds
+    (``moe.held_offset`` ..  + ``held_experts``), -1 where another rank
+    holds it; the choices themselves where the rank holds every expert."""
+    if not moe.held_experts:
+        return expert_idx
+    local = expert_idx - moe.held_offset
+    held = (local >= 0) & (local < moe.held_experts)
+    return torch.where(held, local, torch.full_like(local, -1))
 
 
 def assign(probs, gate_vals, expert_idx, E: int, C: int):
@@ -170,9 +208,10 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
                 and (cdt == torch.bfloat16 or x.device.type == "cpu"))
     path = "dropless" if dropless else "einsum"
     EP_CALLS[path] = EP_CALLS.get(path, 0) + 1
-    if dropless and p["wg"].shape[0] != E:
+    held = moe.held_experts or E
+    if dropless and p["wg"].shape[0] != held:
         raise ValueError(f"moe_ffn: {p['wg'].shape[0]} experts' weights for "
-                         f"{E} experts")
+                         f"{held} experts held")
 
     with prange("moe.ffn"):
         xg = x.reshape(g, group, D)
@@ -181,10 +220,15 @@ def moe_ffn(p, x: torch.Tensor, moe: MoEConfig, compute_dtype):
             # every routed (token, choice) over its expert's rows alone
             y = moe_experts(xg.reshape(n_tok, D).to(cdt),
                             gate_vals.reshape(n_tok, -1),
-                            expert_idx.reshape(n_tok, -1), p["wg"].to(cdt),
-                            p["wu"].to(cdt), p["wd"].to(cdt))
+                            held_choices(expert_idx.reshape(n_tok, -1), moe),
+                            p["wg"].to(cdt), p["wu"].to(cdt),
+                            p["wd"].to(cdt), partial=moe.held_experts > 0)
         else:
             _, dispatch, combine = assign(probs, gate_vals, expert_idx, E, C)
+            if moe.held_experts:
+                lo = moe.held_offset
+                dispatch = dispatch[:, :, lo:lo + held]
+                combine = combine[:, :, lo:lo + held]
             # a dry-run rank's experts (routing ran over all E); else all E
             dispatch, combine = rank_view().experts(dispatch, combine,
                                                     p["wg"].shape[0])

@@ -9,7 +9,11 @@ package, so parameter trees cross between the packages unchanged; the JAX
 the config's remat (:func:`_remat`).  A block's FFN is the SwiGLU MLP or,
 in the ``moe`` family, the routed experts (plus a shared expert where the
 config has one); the ``vlm`` family prepends projected patch embeddings to
-the text.
+the text.  A config with ``moe.first_dense`` keeps its leading dense layers
+in a stack of their own (``params["dense_blocks"]``), run ahead of
+``blocks``; one with latent attention (``cfg.is_mla``) has
+``models/mla.py``'s mixer in every layer, and is served through the paged
+engine alone (the whole-cache prefill and decode refuse it).
 """
 from __future__ import annotations
 
@@ -21,19 +25,24 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as M
 from repro_torch.models import sharding as S
 
 
-def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """One decoder block: attention + FFN (dense or MoE [+ shared expert])."""
+def init_block(gen: torch.Generator, cfg: ArchConfig,
+               dense: bool = False) -> dict:
+    """One decoder block: attention (MLA where the config has it) + FFN
+    (dense, or MoE [+ shared expert]; ``dense``: one of the leading dense
+    layers of a config with ``moe.first_dense``)."""
     dev = gen.device
     params = {
-        "attn": L.init_attention(gen, cfg),
+        "attn": MLA.init_mla(gen, cfg) if cfg.is_mla
+        else L.init_attention(gen, cfg),
         "norm1": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
         "norm2": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, dev),
     }
-    if cfg.moe is not None and cfg.moe.every_k == 1:
+    if cfg.moe is not None and cfg.moe.every_k == 1 and not dense:
         params["moe"] = M.init_moe(gen, cfg.d_model, cfg.moe, cfg.param_dtype)
         if cfg.moe.num_shared_experts:
             params["shared_mlp"] = L.init_mlp(
@@ -43,11 +52,12 @@ def init_block(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return params
 
 
-def block_axes(cfg: ArchConfig) -> dict:
+def block_axes(cfg: ArchConfig, dense: bool = False) -> dict:
     """The logical axes of :func:`init_block`'s leaves."""
-    axes = {"attn": L.attention_axes(cfg), "norm1": L.RMSNORM_AXES,
-            "norm2": L.RMSNORM_AXES}
-    if cfg.moe is not None and cfg.moe.every_k == 1:
+    axes = {"attn": dict(MLA.MLA_AXES) if cfg.is_mla
+            else L.attention_axes(cfg),
+            "norm1": L.RMSNORM_AXES, "norm2": L.RMSNORM_AXES}
+    if cfg.moe is not None and cfg.moe.every_k == 1 and not dense:
         axes["moe"] = M.moe_axes(cfg.moe)
         if cfg.moe.num_shared_experts:
             axes["shared_mlp"] = dict(L.MLP_AXES)
@@ -71,12 +81,17 @@ def _prefix_layers(axes: dict) -> dict:
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """Random parameters on ``gen.device``, keyed and shaped as the JAX
     package's (blocks stacked on a leading layer axis)."""
+    n_dense = first_dense(cfg)
     params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model,
                                   cfg.param_dtype),
-        "blocks": _stack([init_block(gen, cfg) for _ in range(cfg.num_layers)]),
+        "blocks": _stack([init_block(gen, cfg)
+                          for _ in range(cfg.num_layers - n_dense)]),
         "final_norm": L.init_rmsnorm(cfg.d_model, cfg.param_dtype, gen.device),
     }
+    if n_dense:
+        params["dense_blocks"] = _stack([init_block(gen, cfg, dense=True)
+                                         for _ in range(n_dense)])
     if not cfg.tie_embeddings:
         params["head"] = L._init_dense(
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, cfg.param_dtype
@@ -97,12 +112,34 @@ def param_axes(cfg: ArchConfig) -> dict:
     axes = {"embed": L.EMBED_AXES,
             "blocks": _prefix_layers(block_axes(cfg)),
             "final_norm": L.RMSNORM_AXES}
+    if first_dense(cfg):
+        axes["dense_blocks"] = _prefix_layers(block_axes(cfg, dense=True))
     if not cfg.tie_embeddings:
         axes["head"] = ("embed", "vocab")
     if cfg.num_patches:
         axes["projector"] = {"w1": ("frontend", "embed"),
                              "w2": ("embed", "embed")}
     return axes
+
+
+def first_dense(cfg: ArchConfig) -> int:
+    """The leading dense layers (``params["dense_blocks"]``) ahead of the
+    stacked MoE layers (``params["blocks"]``)."""
+    return cfg.moe.first_dense if cfg.moe is not None else 0
+
+
+def stack_layers(params: dict):
+    """Every layer's parameters in order (views, each made as it is
+    reached): the leading dense layers, then the stack's."""
+    for k in ("dense_blocks", "blocks"):
+        if k in params:
+            for i in range(_depth(params[k])):
+                yield layer(params[k], i)
+
+
+def _depth(blocks: dict) -> int:
+    leaf = next(iter(blocks.values()))
+    return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
 
 
 def layer(blocks: dict, i: int) -> dict:
@@ -194,6 +231,9 @@ def prenorm_layer(p, x, cfg: ArchConfig, *mixers):
 
 def apply_block(p, x, cfg: ArchConfig, *, positions, mask=None):
     """One block over the whole sequence: (x, aux loss)."""
+    if cfg.is_mla:
+        return prenorm_layer(p, x, cfg, ("norm1", lambda h: MLA.attention(
+            p["attn"], h, cfg, positions=positions)))
     return prenorm_layer(p, x, cfg, ("norm1", lambda h: L.attention(
         p["attn"], h, cfg, positions=positions, mask=mask)))
 
@@ -207,7 +247,10 @@ def run_stack(params, x, cfg: ArchConfig, *, positions, mask=None):
 
     body = _remat(body, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp in unbind_layers(params["blocks"]):
+    stack = unbind_layers(params["blocks"])
+    if "dense_blocks" in params:
+        stack = unbind_layers(params["dense_blocks"]) + stack
+    for bp in stack:
         x, a = body(x, bp)
         aux = aux + a
     return x, aux
@@ -260,6 +303,11 @@ def logits(params, h, cfg: ArchConfig):
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, dtype, device):
+    if cfg.is_mla or first_dense(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: latent attention and leading dense layers are "
+            f"served through the paged engine (serve.paged), which holds "
+            f"the latent pool; the whole-cache path has neither")
     one = L.init_kv_cache(batch, max_len, cfg, dtype, device)
     return {k: torch.zeros((cfg.num_layers,) + tuple(v.shape), dtype=v.dtype,
                            device=device)

@@ -121,11 +121,11 @@ class ServeEngine:
         self.eos_id = eos_id
         self.mesh = mesh
         if mesh is not None:
-            if self.cfg.family == "hybrid":
+            if self.cfg.family == "hybrid" or self.cfg.is_mla:
                 raise ValueError(
                     f"{self.cfg.name}: a slot-sharded engine does not serve "
-                    f"the hybrid family (its per-slot state pool is not "
-                    f"sharded)")
+                    f"the hybrid family or latent attention (its per-slot "
+                    f"state or latent pool is not sharded)")
             paged.check_slot_sharding(slots, mesh)
         self.sched = ServeScheduler(self.serve_cfg)
         self.requests: dict[int, Request] = {}

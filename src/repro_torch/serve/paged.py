@@ -77,12 +77,26 @@ mid-prefill) keeps its state and tails as they were (``mamba_step``'s
 ``active``).
 :func:`reset_slot_state` zeroes a slot's state when a request is admitted.
 
+**Latent attention** (``cfg.is_mla``, ``models/mla.py``) keeps one latent
+pool in place of K and V:
+
+    pool["latent"]: (num_layers, num_blocks, block_size, kv_rank + rope)
+
+a token's normed latent and rotated ``k_pe`` a layer, shared by every head
+(576 values at the published widths, where per-head K/V would hold 64 x
+(192 + 128)).  Each new token's entry is written in place, as K/V are, and
+every token then attends over its lane's entries up to its own position
+through the paged kernel ``kernels/mla_attention`` (absorbed form; no view
+is gathered), in a prefill chunk as in a decode call.  Leading dense layers
+(``dense_blocks``) run ahead of the stack's (``transformer.stack_layers``).
+
 ``torch.profiler`` ranges (``obs.record.prange``): ``paged.kv_gather``
 around each layer's two gathers of the view, ``paged.head`` around the
 head's weight and logits in both functions, ``mamba.mixer`` around each
 Mamba layer's mixer (its state read and write-back included: in a
-decode call, the decode-step kernel); the MoE FFN
-is ``moe.ffn``.
+decode call, the decode-step kernel), ``mla.attn`` around each latent
+attention mixer (projections, the entry's write, the kernel and
+``o_proj``); the MoE FFN is ``moe.ffn``.
 """
 from __future__ import annotations
 
@@ -94,8 +108,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
+from repro_torch.models import mla as MLA
 from repro_torch.models.sharding import P, shards
-from repro_torch.models.transformer import layer, logits, prenorm_layer
+from repro_torch.models.transformer import logits, prenorm_layer, stack_layers
 from repro_torch.obs.record import prange
 from repro_torch.serve.policy import ServeConfig
 from repro_torch.tree import tree_map
@@ -122,9 +137,10 @@ def attention_layers(cfg: ArchConfig) -> list[int]:
 
 
 def init_pool(cfg: ArchConfig, scfg: ServeConfig, device) -> dict:
-    """Zero-initialized paged KV pool for every attention layer; in the
-    hybrid family also the state pool of every Mamba layer (``"ssm"``,
-    ``slots + 1`` lanes, the last one scratch)."""
+    """Zero-initialized paged KV pool for every attention layer (a latent
+    pool ``"latent"`` where the config has latent attention); in the hybrid
+    family also the state pool of every Mamba layer (``"ssm"``, ``slots +
+    1`` lanes, the last one scratch)."""
     shape = (
         len(attention_layers(cfg)),
         scfg.resolved_num_blocks(),
@@ -133,6 +149,10 @@ def init_pool(cfg: ArchConfig, scfg: ServeConfig, device) -> dict:
         cfg.resolved_head_dim,
     )
     dt = L.dtype_of(cfg.compute_dtype)
+    if cfg.is_mla:
+        return {"latent": torch.zeros(
+            shape[:3] + (cfg.mla_kv_rank + cfg.mla_rope_dim,), dtype=dt,
+            device=device)}
     pool = {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
     if cfg.family == "hybrid":
@@ -184,10 +204,16 @@ def _stack_forward(params, pool, tokens, cfg, *, mamba=None, **attn):
     if cfg.family == "hybrid":
         layers = HY.stack_layers(params, cfg)
     else:
-        layers = (("attn", i, layer(params["blocks"], i))
-                  for i in range(cfg.num_layers))
+        layers = (("attn", i, bp) for i, bp in enumerate(stack_layers(params)))
 
     def attention(p, i, n):
+        if cfg.is_mla:
+            with prange("mla.attn"):
+                return MLA.paged(p, n, cfg, pool["latent"][i],
+                                 positions=attn["positions"],
+                                 write_bi=attn["write_bi"],
+                                 write_off=attn["write_off"],
+                                 tables=attn["tables"])
         return _paged_attention(p, n, cfg, pool["k"][i], pool["v"][i], **attn)
 
     mixers = {"attn": attention, "mamba": mamba}
